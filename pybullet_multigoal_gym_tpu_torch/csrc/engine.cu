@@ -1,0 +1,552 @@
+// K2: the whole control step (n_substeps velocity-level 2 ms substeps)
+// fused into one launch, one thread per environment.
+//
+// Replaces pybullet_multigoal_gym_tpu/ops/pallas_engine.py:_build_kernel
+// (launched through PallasEngine.control_step) for the no-object scene and
+// the one-free-box scene. Same physics as ops/engine_plain.py, the plain
+// PyTorch version it is checked against: arm and finger servos, gravity, FK,
+// the contact lanes (box-plane corners, finger-box SAT manifolds, finger-plane
+// corners, the arm-sphere lanes kept by ops/lane_cull.py), an 8-iteration
+// mass-splitting Jacobi solve with Baumgarte bias and a friction clamp,
+// frozen-arm joint coupling, integration and the EE contact-force readback.
+//
+// Design. As on the TPU, the state stays on chip for the whole control step:
+// nothing goes back to device memory between substeps. The state and
+// controls are read once, as SoA (rows, n) arrays so that neighbouring
+// threads read neighbouring addresses, and the state is written once. The
+// scene is a template (has a body; which arm spheres keep a plane / a box
+// lane), so the lane list is static, like the Python-built Pallas kernel.
+// The lane arrays (about 40 floats per lane, 33 lanes for push) do not fit
+// in registers and live in per-thread local memory, which the L1/L2 caches
+// hold at these sizes.
+//
+// The solver's work follows the data: a lane that is not in contact takes no
+// impulse, so the setup, the iterations and the arm coupling skip it.
+//
+// Bound: operations (a few thousand per environment and substep, as
+// tests/kernels_count.cpp counts them, against 77 floats of traffic per
+// environment and step). At 4096 environments one thread per environment is
+// about one warp per SM, far below what the card holds; spreading an
+// environment's lanes over a warp is later work.
+
+#include "kin.cuh"
+
+namespace kin {
+
+// Scene parameters, in the order of ops/cuda_engine.py:scene_params.
+enum {
+    P_PLANE_Z, P_PLANE_FRIC, P_PLANE_MU, P_FINGER_MU, P_BODY_FRIC,
+    P_HX, P_HY, P_HZ, P_INV_MASS, P_IIX, P_IIY, P_IIZ, P_ERP_DT, P_SLOP,
+    N_PARAMS
+};
+
+// state rows: q 7, qd 7, fq 2, fqd 2, body pos 3, quat 4, linvel 3,
+// angvel 3, ee force 3; controls rows: q target 7, finger target 2
+enum { R_Q = 0, R_QD = 7, R_FQ = 14, R_FQD = 16, R_BP = 18, R_BQ = 21,
+       R_BV = 25, R_BW = 28, R_EE = 31, N_ROWS = 34 };
+enum { C_QT = 0, C_FT = 7 };
+
+constexpr int popc7(int m) {
+    return (m & 1) + (m >> 1 & 1) + (m >> 2 & 1) + (m >> 3 & 1) +
+           (m >> 4 & 1) + (m >> 5 & 1) + (m >> 6 & 1);
+}
+
+template <bool HAS_BODY, int PLANE_MASK, int GEOM_MASK>
+struct Plan {
+    // box-plane 4 + finger-box SAT 2 x 9, finger-plane 2 x 4, arm spheres
+    static constexpr int L = (HAS_BODY ? 4 + 18 : 0) + 8 + popc7(PLANE_MASK) +
+                             (HAS_BODY ? popc7(GEOM_MASK) : 0);
+};
+
+// Contact lanes of one substep plus their static solver metadata
+// (pallas_engine.py:_Lane).
+template <int L>
+struct Lanes {
+    V3 pt[L], nrm[L];
+    float pen[L], act[L];
+    float mu[L], bsg[L], fsg[L], asg[L], cpl[L], esg[L];
+    int fid[L], lnk[L];
+    int count = 0;
+
+    KDEV void add(V3 p, V3 n, float pe, float ac, float m, float bs, int fi,
+                  float fs, int lk, float as, float cp, float es) {
+        int l = count++;
+        pt[l] = p; nrm[l] = n; pen[l] = pe; act[l] = ac; mu[l] = m;
+        bsg[l] = bs; fid[l] = fi; fsg[l] = fs; lnk[l] = lk; asg[l] = as;
+        cpl[l] = cp; esg[l] = es;
+    }
+};
+
+// The 4 corners of the box face most facing direction d
+// (pallas_engine.py:incident_corner_tiles).
+KDEV void incident_corners(V3 c, const M3& R, const float h[3], V3 d,
+                           V3 out[4]) {
+    float dots[3] = {dot(d, col(R, 0)), dot(d, col(R, 1)), dot(d, col(R, 2))};
+    float a0 = fabsf(dots[0]), a1 = fabsf(dots[1]), a2 = fabsf(dots[2]);
+    int k = (a0 >= a1 && a0 >= a2) ? 0 : (a1 >= a2 ? 1 : 2);
+    int k1 = (k + 1) % 3, k2 = (k + 2) % 3;
+    V3 f = (sgnf(dots[k]) * h[k]) * col(R, k);
+    V3 u = h[k1] * col(R, k1);
+    V3 v = h[k2] * col(R, k2);
+    V3 base = c + f;
+    out[0] = base - u - v;
+    out[1] = base - u + v;
+    out[2] = base + u - v;
+    out[3] = base + u + v;
+}
+
+KDEV float proj(const M3& R, const float h[3], V3 L) {
+    return fabsf(dot(col(R, 0), L)) * h[0] + fabsf(dot(col(R, 1), L)) * h[1] +
+           fabsf(dot(col(R, 2), L)) * h[2];
+}
+
+KDEV float point_in_box(V3 p, V3 c, const M3& R, const float h[3]) {
+    V3 rel = p - c;
+    bool in = true;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) in = in && (h[i] - fabsf(dot(col(R, i), rel)) > -1e-4f);
+    return in ? 1.0f : 0.0f;
+}
+
+KDEV V3 clamp_into_box(V3 p, V3 c, const M3& R, const float h[3]) {
+    V3 rel = p - c;
+    V3 loc = {clampf(dot(col(R, 0), rel), -h[0], h[0]),
+              clampf(dot(col(R, 1), rel), -h[1], h[1]),
+              clampf(dot(col(R, 2), rel), -h[2], h[2])};
+    return c + mat3vec(R, loc);
+}
+
+// 4-lane box vs plane: the bottom-face incident corners.
+template <int L>
+KDEV void box_plane_lanes(Lanes<L>& ls, V3 c, const M3& R, const float h[3],
+                          float plane_z, float mu, float bs, int fi, float fs,
+                          int lk, float as, float cp, float es) {
+    V3 cs[4];
+    incident_corners(c, R, h, V3{0.0f, 0.0f, -1.0f}, cs);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        float pen = plane_z - cs[k].z;
+        ls.add(cs[k], V3{0.0f, 0.0f, 1.0f}, pen, pen > -1e-4f ? 1.0f : 0.0f,
+               mu, bs, fi, fs, lk, as, cp, es);
+    }
+}
+
+// 9-lane SAT box (A) vs box (B) manifold: 4 incident-face corners of A in B,
+// 4 of B in A, 1 cross-piercing fallback (pallas_engine.py:sat_box_box_lanes).
+template <int L>
+KDEV void sat_box_box_lanes(Lanes<L>& ls, V3 ca, const M3& Ra,
+                            const float ha[3], V3 cb, const M3& Rb,
+                            const float hb[3], float mu, float bs, int fi,
+                            float fs, int lk, float as, float cp, float es) {
+    V3 t = ca - cb;
+    float best = 0.0f, sat_ok = 1.0f;
+    V3 n = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int a = 0; a < 6; ++a) {
+        V3 Lx = a < 3 ? col(Ra, a) : col(Rb, a - 3);
+        float tl = dot(t, Lx);
+        float ov = proj(Ra, ha, Lx) + proj(Rb, hb, Lx) - fabsf(tl);
+        sat_ok = sat_ok * (ov > -1e-4f ? 1.0f : 0.0f);
+        if (a == 0 || ov < best) {
+            best = ov;
+            n = Lx * sgnf(tl);
+        }
+    }
+    float ra_n = proj(Ra, ha, n), rb_n = proj(Rb, hb, n);
+    float inside_any = 0.0f;
+    V3 cs[4];
+    incident_corners(ca, Ra, ha, -n, cs);         // A corners toward B
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        float pen = rb_n - dot(n, cs[k] - cb);
+        float in = point_in_box(cs[k], cb, Rb, hb);
+        inside_any = fmaxf(inside_any, in);
+        ls.add(cs[k], n, pen, in * sat_ok, mu, bs, fi, fs, lk, as, cp, es);
+    }
+    incident_corners(cb, Rb, hb, n, cs);          // B corners toward A
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        float pen = dot(n, cs[k] - ca) + ra_n;
+        float in = point_in_box(cs[k], ca, Ra, ha);
+        inside_any = fmaxf(inside_any, in);
+        ls.add(cs[k], n, pen, in * sat_ok, mu, bs, fi, fs, lk, as, cp, es);
+    }
+    V3 p_cross = 0.5f * (clamp_into_box(ca, cb, Rb, hb) +
+                         clamp_into_box(cb, ca, Ra, ha));
+    ls.add(p_cross, n, best, sat_ok * (1.0f - inside_any), mu, bs, fi, fs, lk,
+           as, cp, es);
+}
+
+// Sphere (A) vs box (B): 1 lane; the normal pushes the sphere out.
+template <int L>
+KDEV void sphere_box_lane(Lanes<L>& ls, V3 c, float radius, V3 cb,
+                          const M3& Rb, const float hb[3], float mu, float bs,
+                          int lk, float es) {
+    V3 rel = c - cb;
+    float cl[3] = {dot(col(Rb, 0), rel), dot(col(Rb, 1), rel),
+                   dot(col(Rb, 2), rel)};
+    V3 delta = {cl[0] - clampf(cl[0], -hb[0], hb[0]),
+                cl[1] - clampf(cl[1], -hb[1], hb[1]),
+                cl[2] - clampf(cl[2], -hb[2], hb[2])};
+    float dd = dot(delta, delta);
+    float d = sqrtf(fmaxf(dd, 1e-18f));
+    bool outside = dd > 1e-18f;
+    V3 n_local;
+    float pen;
+    if (outside) {
+        n_local = {delta.x / d, delta.y / d, delta.z / d};
+        pen = radius - d;
+    } else {
+        float e0 = hb[0] - fabsf(cl[0]), e1 = hb[1] - fabsf(cl[1]),
+              e2 = hb[2] - fabsf(cl[2]);
+        float emin = fminf(e0, fminf(e1, e2));
+        int k = (e0 <= e1 && e0 <= e2) ? 0 : (e1 <= e2 ? 1 : 2);
+        n_local = {k == 0 ? sgnf(cl[0]) : 0.0f, k == 1 ? sgnf(cl[1]) : 0.0f,
+                   k == 2 ? sgnf(cl[2]) : 0.0f};
+        pen = radius + emin;
+    }
+    V3 n = mat3vec(Rb, n_local);
+    ls.add(c - n * radius, n, pen, pen > -1e-4f ? 1.0f : 0.0f, mu, bs, -1,
+           0.0f, lk, 1.0f, 1.0f, es);
+}
+
+// One environment, n_sub substeps.
+template <bool HAS_BODY, int PLANE_MASK, int GEOM_MASK>
+KDEV void engine_env(const float* __restrict__ st, const float* __restrict__ ctl,
+                     const float* __restrict__ prm, float* __restrict__ out,
+                     int n, int i, int n_sub, int iters) {
+    constexpr int L = Plan<HAS_BODY, PLANE_MASK, GEOM_MASK>::L;
+    const float plane_z = prm[P_PLANE_Z], plane_fric = prm[P_PLANE_FRIC];
+    const float plane_mu = prm[P_PLANE_MU], finger_mu = prm[P_FINGER_MU];
+    const float body_fric = prm[P_BODY_FRIC], inv_mass = prm[P_INV_MASS];
+    const float half[3] = {prm[P_HX], prm[P_HY], prm[P_HZ]};
+    const float inv_I[3] = {prm[P_IIX], prm[P_IIY], prm[P_IIZ]};
+    const float erp_dt = prm[P_ERP_DT], slop = prm[P_SLOP];
+    const float fhalf[3] = {FINGER_HALF[0], FINGER_HALF[1], FINGER_HALF[2]};
+
+    float q[7], qd[7], qt[7], fq[2], fqd[2], ft[2];
+#pragma unroll
+    for (int j = 0; j < 7; ++j) {
+        q[j] = st[(R_Q + j) * n + i];
+        qd[j] = st[(R_QD + j) * n + i];
+        qt[j] = ctl[(C_QT + j) * n + i];
+    }
+#pragma unroll
+    for (int f = 0; f < 2; ++f) {
+        fq[f] = st[(R_FQ + f) * n + i];
+        fqd[f] = st[(R_FQD + f) * n + i];
+        ft[f] = ctl[(C_FT + f) * n + i];
+    }
+    V3 bp = {st[R_BP * n + i], st[(R_BP + 1) * n + i], st[(R_BP + 2) * n + i]};
+    Q4 bq = {st[R_BQ * n + i], st[(R_BQ + 1) * n + i], st[(R_BQ + 2) * n + i],
+             st[(R_BQ + 3) * n + i]};
+    V3 bv = {st[R_BV * n + i], st[(R_BV + 1) * n + i], st[(R_BV + 2) * n + i]};
+    V3 bw = {st[R_BW * n + i], st[(R_BW + 1) * n + i], st[(R_BW + 2) * n + i]};
+    V3 ee = {0.0f, 0.0f, 0.0f};
+
+    Lanes<L> ls;
+    V3 t1[L], t2[L], r_a[L], v_arm[L], lax[L];
+    float kn[L], kt1[L], kt2[L], bias[L], solv[L], lfc[L];
+    float ln[L], lt1[L], lt2[L];
+
+#pragma unroll 1
+    for (int s = 0; s < n_sub; ++s) {
+        // 1. arm servo -> proposed qd (q integrates after the solve)
+#pragma unroll
+        for (int j = 0; j < 7; ++j) {
+            float v_des = clampf(ARM_SERVO_RATE * (qt[j] - q[j]), -ARM_VEL_LIMIT,
+                                 ARM_VEL_LIMIT);
+            float dv = ARM_PD_FORCE * DT / ARM_INERTIA[j];
+            qd[j] = qd[j] + clampf(v_des - qd[j], -dv, dv);
+        }
+        // 2. FK at the current configuration
+        V3 o[7], z[7];
+        Q4 r[7];
+        link_frames(q, o, r);
+#pragma unroll
+        for (int j = 0; j < 7; ++j) z[j] = qrotate(r[j], V3{0.0f, 0.0f, 1.0f});
+        Q4 r7 = r[6];
+        M3 Rb7 = qmat(r7);
+        V3 gbase = o[6] + qrotate(r7, load3(GRIPPER_BASE_OFFSET));
+        V3 fpos[2], faxis[2];
+#pragma unroll
+        for (int f = 0; f < 2; ++f) {
+            V3 ax = load3(FINGER_AXIS[f]);
+            fpos[f] = gbase + qrotate(r7, load3(FINGER_ORIGIN[f]) + ax * fq[f]);
+            faxis[f] = qrotate(r7, ax);
+        }
+        // 3. finger servo
+#pragma unroll
+        for (int f = 0; f < 2; ++f) {
+            float v_des = clampf(ARM_SERVO_RATE * (ft[f] - fq[f]),
+                                 -FINGER_VEL_LIMIT, FINGER_VEL_LIMIT);
+            float dv = FINGER_PD_FORCE * DT / FINGER_MASS;
+            fqd[f] = fqd[f] + clampf(v_des - fqd[f], -dv, dv);
+        }
+        // 4. gravity
+        M3 Ra = qmat(bq);
+        if (HAS_BODY) bv.z = bv.z - GRAVITY * DT;
+
+        // 5. contact lanes, in the order of pallas_engine.py:573-611
+        ls.count = 0;
+        if (HAS_BODY) {
+            box_plane_lanes(ls, bp, Ra, half, plane_z, plane_mu, 1.0f, -1,
+                            0.0f, -1, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+            for (int f = 0; f < 2; ++f)
+                sat_box_box_lanes(ls, bp, Ra, half, fpos[f], Rb7, fhalf,
+                                  finger_mu, 1.0f, f, -1.0f, 6, -1.0f, 0.0f,
+                                  -1.0f);
+        }
+#pragma unroll
+        for (int f = 0; f < 2; ++f)
+            box_plane_lanes(ls, fpos[f], Rb7, fhalf, plane_z, plane_fric, 0.0f,
+                            f, 1.0f, 6, 1.0f, 1.0f, 1.0f);
+#pragma unroll
+        for (int sp = 0; sp < 7; ++sp) {
+            const bool keep_plane = (PLANE_MASK >> sp) & 1;
+            const bool keep_box = HAS_BODY && ((GEOM_MASK >> sp) & 1);
+            if (!keep_plane && !keep_box) continue;
+            int li = SPH_LINK[sp];
+            float rad = SPH_R[sp];
+            float es = li == 6 ? 1.0f : 0.0f;
+            V3 c = o[li] + qrotate(r[li], load3(SPH_OFF[sp]));
+            if (keep_plane) {
+                float pen = (plane_z + rad) - c.z;
+                ls.add(V3{c.x, c.y, c.z - rad}, V3{0.0f, 0.0f, 1.0f}, pen,
+                       pen > -1e-4f ? 1.0f : 0.0f, 0.5f * plane_fric, 0.0f, -1,
+                       0.0f, li, 1.0f, 1.0f, es);
+            }
+            if (keep_box)
+                sphere_box_lane(ls, c, rad, bp, Ra, half, 0.5f * body_fric,
+                                -1.0f, li, es);
+        }
+
+        // 6. solve (fused Jacobi, mass splitting)
+        M3 Iw;
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+#pragma unroll
+            for (int k = 0; k < 3; ++k)
+                Iw.m[a][k] = Ra.m[a][0] * inv_I[0] * Ra.m[k][0] +
+                             Ra.m[a][1] * inv_I[1] * Ra.m[k][1] +
+                             Ra.m[a][2] * inv_I[2] * Ra.m[k][2];
+        float body_count = 0.0f, fin_count[2] = {0.0f, 0.0f}, arm_count = 0.0f;
+#pragma unroll 1
+        for (int l = 0; l < L; ++l) {
+            body_count += ls.act[l] * fabsf(ls.bsg[l]);
+            if (ls.fid[l] == 0) fin_count[0] += ls.act[l];
+            if (ls.fid[l] == 1) fin_count[1] += ls.act[l];
+            if (ls.cpl[l] > 0.0f) arm_count += ls.act[l];
+        }
+        body_count = fmaxf(body_count, 1.0f);
+        fin_count[0] = fmaxf(fin_count[0], 1.0f);
+        fin_count[1] = fmaxf(fin_count[1], 1.0f);
+        arm_count = fmaxf(arm_count, 1.0f);
+
+        // An inactive lane takes no impulse: its multipliers stay 0, so the
+        // setup, the iterations and the coupling skip it (adding its zero
+        // impulses would leave every sum as it is).
+#pragma unroll 1
+        for (int l = 0; l < L; ++l) {
+            ln[l] = lt1[l] = lt2[l] = 0.0f;
+            solv[l] = 0.0f;
+            if (!(ls.act[l] > 0.0f)) continue;
+            V3 nl = ls.nrm[l], p = ls.pt[l];
+            r_a[l] = p - bp;
+            V3 up = fabsf(nl.z) < 0.9f ? V3{0.0f, 0.0f, 1.0f} : V3{1.0f, 0.0f, 0.0f};
+            V3 a1 = cross(nl, up);
+            a1 = a1 * rsq(fmaxf(dot(a1, a1), 1e-18f));
+            t1[l] = a1;
+            t2[l] = cross(nl, a1);
+            int fi = ls.fid[l];
+            lax[l] = fi == 0 ? faxis[0] : (fi == 1 ? faxis[1] : V3{0.0f, 0.0f, 0.0f});
+            lfc[l] = fi == 0 ? fin_count[0] : (fi == 1 ? fin_count[1] : 1.0f);
+            // frozen arm point velocity sum_j qd_j (z_j x (p - o_j))
+            V3 va = {0.0f, 0.0f, 0.0f};
+            for (int j = 0; j <= ls.lnk[l]; ++j)
+                va = va + cross(z[j], p - o[j]) * qd[j];
+            v_arm[l] = va;
+            // split-mass effective inverse masses along n, t1, t2
+            float k3[3];
+#pragma unroll
+            for (int dir = 0; dir < 3; ++dir) {
+                V3 d = dir == 0 ? nl : (dir == 1 ? t1[l] : t2[l]);
+                float k = 0.0f;
+                if (fi >= 0) {
+                    float da = dot(d, lax[l]);
+                    k = (da * da / FINGER_MASS) * lfc[l];
+                }
+                if (ls.cpl[l] > 0.0f) {
+                    // arm yields: J_j . d = z_j . ((p - o_j) x d)
+                    float ka = 0.0f;
+                    for (int j = 0; j <= ls.lnk[l]; ++j) {
+                        float jd = dot(cross(p - o[j], d), z[j]);
+                        ka = ka + jd * jd * (1.0f / ARM_INERTIA[j]);
+                    }
+                    k = k + ka * arm_count;
+                }
+                if (HAS_BODY && ls.bsg[l] != 0.0f) {
+                    V3 rxd = cross(r_a[l], d);
+                    k = k + (inv_mass + dot(rxd, mat3vec(Iw, rxd))) * body_count;
+                }
+                k3[dir] = k;
+            }
+            solv[l] = k3[0] > 1e-8f ? 1.0f : 0.0f;
+            kn[l] = fmaxf(k3[0], 1e-8f);
+            kt1[l] = fmaxf(k3[1], 1e-8f);
+            kt2[l] = fmaxf(k3[2], 1e-8f);
+            // capped recovery velocity
+            bias[l] = -fminf(erp_dt * fmaxf(ls.pen[l] - slop, 0.0f), BIAS_CAP);
+        }
+
+        V3 bv_ = bv, bw_ = bw;
+        float fqd_[2] = {fqd[0], fqd[1]};
+#pragma unroll 1
+        for (int it = 0; it < iters; ++it) {
+            V3 sum_imp = {0.0f, 0.0f, 0.0f}, sum_ang = {0.0f, 0.0f, 0.0f};
+            float dfq[2] = {0.0f, 0.0f};
+#pragma unroll 1
+            for (int l = 0; l < L; ++l) {
+                if (!(solv[l] > 0.0f)) continue;
+                int fi = ls.fid[l];
+                // signed relative velocity va - vb of the lane
+                V3 v = v_arm[l] * ls.asg[l];
+                if (fi >= 0) v = v + (lax[l] * fqd_[fi]) * ls.fsg[l];
+                if (HAS_BODY && ls.bsg[l] != 0.0f)
+                    v = v + (bv_ + cross(bw_, r_a[l])) * ls.bsg[l];
+                float dln = -(dot(v, ls.nrm[l]) + bias[l]) / kn[l];
+                float nln = fmaxf(ln[l] + dln, 0.0f);
+                dln = nln - ln[l];
+                float lim = ls.mu[l] * nln;
+                float d1 = -dot(v, t1[l]) / kt1[l];
+                float n1 = clampf(lt1[l] + d1, -lim, lim);
+                d1 = n1 - lt1[l];
+                float d2 = -dot(v, t2[l]) / kt2[l];
+                float n2 = clampf(lt2[l] + d2, -lim, lim);
+                d2 = n2 - lt2[l];
+                ln[l] = nln; lt1[l] = n1; lt2[l] = n2;
+                V3 imp = ls.nrm[l] * dln + t1[l] * d1 + t2[l] * d2;
+                if (HAS_BODY && ls.bsg[l] != 0.0f) {
+                    V3 imp_b = imp * ls.bsg[l];
+                    sum_imp = sum_imp + imp_b;
+                    sum_ang = sum_ang + cross(r_a[l], imp_b);
+                }
+                if (fi >= 0)
+                    dfq[fi] = dfq[fi] + dot(imp, lax[l]) * ls.fsg[l] / FINGER_MASS;
+            }
+            if (HAS_BODY) {
+                bv_ = bv_ + sum_imp * inv_mass;
+                bw_ = bw_ + mat3vec(Iw, sum_ang);
+            }
+            fqd_[0] = fqd_[0] + dfq[0];
+            fqd_[1] = fqd_[1] + dfq[1];
+        }
+
+        // arm coupling: accumulated impulses -> joint velocities, once,
+        // capped at the motor's per-substep authority; EE force sensor
+        float jd[7] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        V3 fin_imp = {0.0f, 0.0f, 0.0f};
+#pragma unroll 1
+        for (int l = 0; l < L; ++l) {
+            if (!(solv[l] > 0.0f)) continue;
+            V3 tot = ls.nrm[l] * ln[l] + t1[l] * lt1[l] + t2[l] * lt2[l];
+            fin_imp = fin_imp + tot * ls.esg[l];
+            V3 imp_arm = tot * ls.asg[l];
+            for (int j = 0; j <= ls.lnk[l]; ++j)
+                jd[j] = jd[j] + dot(cross(ls.pt[l] - o[j], imp_arm), z[j]);
+        }
+#pragma unroll
+        for (int j = 0; j < 7; ++j) {
+            float inv = 1.0f / ARM_INERTIA[j];
+            float cap = ARM_PD_FORCE * DT * inv;
+            qd[j] = qd[j] + clampf(jd[j] * inv, -cap, cap);
+        }
+        ee = {fin_imp.x / DT, fin_imp.y / DT, fin_imp.z / DT};
+
+        // 7. integrate; joints at a hard stop lose the velocity into it
+#pragma unroll
+        for (int j = 0; j < 7; ++j) {
+            q[j] = clampf(q[j] + qd[j] * DT, JL_LO[j], JL_HI[j]);
+            if ((q[j] >= JL_HI[j] && qd[j] > 0.0f) ||
+                (q[j] <= JL_LO[j] && qd[j] < 0.0f))
+                qd[j] = 0.0f;
+        }
+        if (HAS_BODY) {
+            bp = bp + bv_ * DT;
+            float w_norm = sqrtf(fmaxf(dot(bw_, bw_), 1e-18f));
+            float half_ang = w_norm * DT * 0.5f;
+            float sc = w_norm > 1e-9f ? sinf(half_ang) / w_norm : 0.0f;
+            Q4 dq = {cosf(half_ang), bw_.x * sc, bw_.y * sc, bw_.z * sc};
+            bq = qnormalize(qmul(dq, bq));
+            bv = bv_;
+            bw = bw_;
+        }
+#pragma unroll
+        for (int f = 0; f < 2; ++f) {
+            fq[f] = clampf(fq[f] + fqd_[f] * DT, -FINGER_LIMIT, FINGER_LIMIT);
+            fqd[f] = ((fq[f] >= FINGER_LIMIT && fqd_[f] > 0.0f) ||
+                      (fq[f] <= -FINGER_LIMIT && fqd_[f] < 0.0f))
+                         ? 0.0f : fqd_[f];
+        }
+    }
+
+#pragma unroll
+    for (int j = 0; j < 7; ++j) {
+        out[(R_Q + j) * n + i] = q[j];
+        out[(R_QD + j) * n + i] = qd[j];
+    }
+#pragma unroll
+    for (int f = 0; f < 2; ++f) {
+        out[(R_FQ + f) * n + i] = fq[f];
+        out[(R_FQD + f) * n + i] = fqd[f];
+    }
+    const float body[13] = {bp.x, bp.y, bp.z, bq.w, bq.x, bq.y, bq.z,
+                            bv.x, bv.y, bv.z, bw.x, bw.y, bw.z};
+#pragma unroll
+    for (int k = 0; k < 13; ++k) out[(R_BP + k) * n + i] = body[k];
+    out[R_EE * n + i] = ee.x;
+    out[(R_EE + 1) * n + i] = ee.y;
+    out[(R_EE + 2) * n + i] = ee.z;
+}
+
+}  // namespace kin
+
+// The scenes this library holds, as (has a body, plane mask, box mask):
+// reach and push (pick_and_place) with the arm-sphere lanes of end-effector
+// control, and both with every sphere lane (joint control).
+#define ENGINE_SCENES(X) \
+    X(false, 0x40, 0x00) X(true, 0x40, 0x60) X(false, 0x7f, 0x00) X(true, 0x7f, 0x7f)
+
+#ifdef __CUDACC__
+template <bool HAS_BODY, int PLANE_MASK, int GEOM_MASK>
+__global__ void __launch_bounds__(32)
+engine_kernel(const float* __restrict__ st, const float* __restrict__ ctl,
+              const float* __restrict__ prm, float* __restrict__ out, int n,
+              int n_sub, int iters) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n)
+        kin::engine_env<HAS_BODY, PLANE_MASK, GEOM_MASK>(st, ctl, prm, out, n,
+                                                          i, n_sub, iters);
+}
+
+// Launch the scene's kernel on `stream`. Returns cudaErrorInvalidValue for a
+// scene this library does not hold, else cudaGetLastError() after the launch.
+extern "C" int engine_launch(int has_body, int plane_mask, int geom_mask,
+                             const float* st, const float* ctl,
+                             const float* prm, float* out, int n, int n_sub,
+                             int iters, void* stream) {
+    if (n == 0) return 0;
+    dim3 grid((n + 31) / 32), block(32);
+    cudaStream_t s = (cudaStream_t)stream;
+#define ENGINE_CASE(HB, PM, GM)                                              \
+    if ((has_body != 0) == HB && plane_mask == PM && geom_mask == GM) {      \
+        engine_kernel<HB, PM, GM><<<grid, block, 0, s>>>(st, ctl, prm, out,  \
+                                                         n, n_sub, iters);   \
+        return (int)cudaGetLastError();                                      \
+    }
+    ENGINE_SCENES(ENGINE_CASE)
+#undef ENGINE_CASE
+    return (int)cudaErrorInvalidValue;
+}
+#endif

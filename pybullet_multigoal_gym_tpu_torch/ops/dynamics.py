@@ -1,0 +1,132 @@
+"""Physics constants, state and the static scene constants of the engines.
+
+Counterpart of the first part of `pybullet_multigoal_gym_tpu/ops/dynamics.py`
+(constants, `PhysicsState`, `Controls`, `Engine.__init__`'s spec constants
+and `Engine.init_state`), batched over a leading env axis. The physics itself
+is `ops/engine_plain.py` (plain PyTorch) and `ops/cuda_engine.py` (the
+kernel). One control step = ``n_substeps`` velocity-level substeps of
+``DT_SUB`` seconds (5 stepSimulation calls x 20 substeps = 100).
+"""
+
+import dataclasses
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from pybullet_multigoal_gym_tpu_torch.model import kuka_model as KM
+from pybullet_multigoal_gym_tpu_torch.ops import lane_cull as LC
+from pybullet_multigoal_gym_tpu_torch.ops import scene as S
+from pybullet_multigoal_gym_tpu_torch.utils.tensors import const
+
+GRAVITY = 9.81
+DT_SUB = 0.002                  # base_env.py:74 timestep=0.002
+SUBSTEPS_PER_SIM = 20           # frame_skip / numSubSteps (base_env.py:217-219)
+SIM_CALLS_PER_STEP = 5          # kuka.py:223-225
+ARM_SERVO_RATE = KM.ARM_PD_POSITION_GAIN / DT_SUB     # 15 s^-1
+FINGER_VEL_LIMIT = 0.2          # URDF finger joint <limit velocity>
+ARM_VEL_LIMIT = 10.0
+BIAS_CAP = 0.15                 # max penetration-recovery velocity (m/s)
+
+N_ARM_SPHERES = len(KM.ARM_SPHERE_RADIUS)
+
+
+class PhysicsState(NamedTuple):
+    """Dynamic state of a batch of N environments."""
+    q: torch.Tensor            # (N, 7) arm joint positions
+    qd: torch.Tensor           # (N, 7)
+    fq: torch.Tensor           # (N, 2) finger prismatic positions
+    fqd: torch.Tensor          # (N, 2)
+    body_pos: torch.Tensor     # (N, NB, 3), NB = max(n_bodies, 1)
+    body_quat: torch.Tensor    # (N, NB, 4) wxyz
+    body_linvel: torch.Tensor  # (N, NB, 3)
+    body_angvel: torch.Tensor  # (N, NB, 3)
+    door_q: torch.Tensor       # (N,)
+    door_qd: torch.Tensor      # (N,)
+    ee_contact_force: torch.Tensor  # (N, 3) world-frame contact force on gripper
+
+
+class Controls(NamedTuple):
+    q_target: torch.Tensor       # (N, 7)
+    f_target: torch.Tensor       # (N, 2) finger joint targets
+    door_motor_on: torch.Tensor  # (N,) bool
+    door_target: torch.Tensor    # (N,)
+
+
+@dataclasses.dataclass(frozen=True)
+class SceneConsts:
+    """Everything static that the control step of a single-free-body scene
+    needs, in float32 where the kernels read it."""
+    has_body: bool
+    half: Tuple[float, float, float]        # box half extents
+    inv_mass: float
+    inv_inertia: Tuple[float, float, float]  # body-frame diagonal
+    body_friction: float
+    plane_z: float
+    plane_friction: float
+    plane_mu: float          # body vs plane
+    finger_mu: float         # finger vs body
+    # arm-sphere lanes kept by the workspace envelope (lane_cull), bit sp
+    plane_mask: int
+    geom_mask: int
+    # solver: 8 mass-splitting Jacobi iterations, Baumgarte erp and slop
+    # (the JAX package's Engine defaults)
+    solver_iters: int = 8
+    erp: float = 0.2
+    slop: float = 5e-4
+
+
+def scene_consts(spec: S.SceneSpec, ik_workspace: bool = True) -> SceneConsts:
+    """Static constants of a single-step scene with the parallel-jaw
+    gripper: the no-object scene or one free box
+    (`pallas_engine.py:497-534`). ``ik_workspace=False`` (joint control)
+    keeps every arm-sphere lane."""
+    assert spec.n_bodies <= 1 and spec.ns_static == 0 and spec.door is None, \
+        'single-free-body scenes only'
+    has_body = spec.n_bodies == 1
+    reach = LC.arm_lane_mask(spec, ik_workspace)
+    plane_mask = sum(1 << sp for sp in range(N_ARM_SPHERES)
+                     if reach['plane'][sp])
+    geom_mask = 0
+    half, inv_mass, inv_inertia, fric = (0.0, 0.0, 0.0), 0.0, (0.0,) * 3, 0.0
+    if has_body:
+        a = spec.np_arrays()
+        if int(a['geom_type'][0]) != S.BOX:
+            raise NotImplementedError('the cylinder scene (slide) comes with '
+                                      'a later slice of the port')
+        half = tuple(float(x) for x in a['geom_half'][0])
+        mass = float(a['body_mass'][0])
+        inv_mass = 1.0 / mass
+        fric = float(a['body_friction'][0])
+        inertia = S.body_inertia_diag(mass, half, S.BOX)
+        inv_inertia = tuple(float(x) for x in (1.0 / inertia).astype(np.float32))
+        geom_mask = sum(1 << sp for sp in range(N_ARM_SPHERES)
+                        if reach['geom'][sp][0])
+    return SceneConsts(
+        has_body=has_body, half=half, inv_mass=inv_mass,
+        inv_inertia=inv_inertia, body_friction=fric, plane_z=spec.plane_z,
+        plane_friction=spec.plane_friction, plane_mu=fric * spec.plane_friction,
+        finger_mu=fric * 1.0, plane_mask=plane_mask, geom_mask=geom_mask)
+
+
+def init_state(n, nb=1, q=None, body_pos=None, fq=KM.FINGER_LIMIT,
+               device=None) -> PhysicsState:
+    """A batch of n resting states, bodies upright (`Engine.init_state`)."""
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    if q is None:
+        q = const(KM.KUKA_REST_POSE, z).expand(n, 7)
+    if body_pos is None:
+        body_pos = z.new_zeros((n, nb, 3))
+    body_quat = const([1.0, 0.0, 0.0, 0.0], z).expand(n, nb, 4)
+    return PhysicsState(
+        q=q.to(z).expand(n, 7).contiguous(),
+        qd=z.new_zeros((n, 7)),
+        fq=z.new_full((n, 2), fq),
+        fqd=z.new_zeros((n, 2)),
+        body_pos=body_pos.to(z).contiguous(),
+        body_quat=body_quat.to(z).contiguous(),
+        body_linvel=z.new_zeros((n, nb, 3)),
+        body_angvel=z.new_zeros((n, nb, 3)),
+        door_q=z.new_zeros((n,)),
+        door_qd=z.new_zeros((n,)),
+        ee_contact_force=z.new_zeros((n, 3)))

@@ -1,0 +1,171 @@
+// Operation count of the port's CUDA kernels on given inputs: the
+// per-environment device code of csrc/ik.cu and csrc/engine.cu compiled by
+// the host C++ compiler with every `float` replaced by `Flop`, a float that
+// counts the arithmetic done on it (tests/kernel_ops.py builds and calls it;
+// chip_smoke.py takes the kernels' operation bound from it).
+//
+// What counts: +, -, *, /, sqrt, sin, cos, atan2, min and max (a clamp is a
+// min and a max), once each, when an operand is data. A value is "known"
+// when the scene plan or a mask fixes it: a literal, a model table, a lane's
+// static metadata, or a 0/1 or +-1 picked from literals by a comparison (an
+// activation, a sign). An operation on known values only, a product with a
+// known 0 (its result is a known 0), a product or quotient by a known +-1 and
+// a sum with a known 0 do not count: they are selects, sign flips and
+// masking, not arithmetic the data needs. Comparisons, negation and fabs
+// do not count either (the card folds the last two into the operands).
+// The values are computed exactly as in the float build, so every branch
+// goes as it goes in tests/kernels_host.cpp.
+#include <cmath>
+#include <cstdint>
+#include <thread>
+#include <vector>
+
+static thread_local unsigned long long flop_count = 0;
+
+struct Flop {
+    float v;
+    bool known;
+    Flop() = default;
+    constexpr Flop(double x) : v(static_cast<float>(x)), known(true) {}
+
+    static Flop make(float v, bool known) {
+        Flop r;
+        r.v = v;
+        r.known = known;
+        return r;
+    }
+    static Flop counted(float v) {
+        ++flop_count;
+        return make(v, false);
+    }
+    bool is(float c) const { return known && v == c; }
+    bool unit() const { return is(1.0f) || is(-1.0f); }
+
+    friend Flop operator+(Flop a, Flop b) {
+        float v = a.v + b.v;
+        if (a.known && b.known) return make(v, true);
+        if (a.is(0.0f) || b.is(0.0f)) return make(v, false);
+        return counted(v);
+    }
+    friend Flop operator-(Flop a, Flop b) {
+        float v = a.v - b.v;
+        if (a.known && b.known) return make(v, true);
+        if (a.is(0.0f) || b.is(0.0f)) return make(v, false);
+        return counted(v);
+    }
+    friend Flop operator*(Flop a, Flop b) {
+        float v = a.v * b.v;
+        if (a.known && b.known) return make(v, true);
+        if (a.is(0.0f) || b.is(0.0f)) return make(v, true);
+        if (a.unit() || b.unit()) return make(v, false);
+        return counted(v);
+    }
+    friend Flop operator/(Flop a, Flop b) {
+        float v = a.v / b.v;
+        if (a.known && b.known) return make(v, true);
+        if (a.is(0.0f)) return make(v, true);
+        if (b.unit()) return make(v, false);
+        return counted(v);
+    }
+    friend Flop operator-(Flop a) { return make(-a.v, a.known); }
+    Flop& operator+=(Flop b) { return *this = *this + b; }
+    friend bool operator<(Flop a, Flop b) { return a.v < b.v; }
+    friend bool operator>(Flop a, Flop b) { return a.v > b.v; }
+    friend bool operator<=(Flop a, Flop b) { return a.v <= b.v; }
+    friend bool operator>=(Flop a, Flop b) { return a.v >= b.v; }
+    friend bool operator==(Flop a, Flop b) { return a.v == b.v; }
+    friend bool operator!=(Flop a, Flop b) { return a.v != b.v; }
+};
+
+static Flop unary(float v, Flop a) {
+    return a.known ? Flop::make(v, true) : Flop::counted(v);
+}
+static Flop binary(float v, Flop a, Flop b) {
+    return a.known && b.known ? Flop::make(v, true) : Flop::counted(v);
+}
+inline Flop fabsf(Flop a) { return Flop::make(std::fabs(a.v), a.known); }
+inline Flop sqrtf(Flop a) { return unary(std::sqrt(a.v), a); }
+inline Flop sinf(Flop a) { return unary(::sinf(a.v), a); }
+inline Flop cosf(Flop a) { return unary(::cosf(a.v), a); }
+inline Flop fminf(Flop a, Flop b) { return binary(std::fmin(a.v, b.v), a, b); }
+inline Flop fmaxf(Flop a, Flop b) { return binary(std::fmax(a.v, b.v), a, b); }
+inline Flop atan2f(Flop a, Flop b) {
+    return binary(::atan2f(a.v, b.v), a, b);
+}
+
+#define float Flop
+#include "../pybullet_multigoal_gym_tpu_torch/csrc/engine.cu"
+#include "../pybullet_multigoal_gym_tpu_torch/csrc/ik.cu"
+#undef float
+
+namespace {
+
+std::vector<Flop> data(const float* x, long count) {
+    std::vector<Flop> out(count);
+    for (long k = 0; k < count; ++k) out[k] = Flop::make(x[k], false);
+    return out;
+}
+
+// Run fn(i) for every environment on `threads` threads; the summed count.
+template <class Fn>
+unsigned long long count_envs(int n, int threads, Fn fn) {
+    if (threads < 1) threads = 1;
+    std::vector<unsigned long long> per(threads, 0);
+    std::vector<std::thread> pool;
+    for (int t = 0; t < threads; ++t)
+        pool.emplace_back([&, t] {
+            flop_count = 0;
+            for (int i = t; i < n; i += threads) fn(i);
+            per[t] = flop_count;
+        });
+    unsigned long long total = 0;
+    for (int t = 0; t < threads; ++t) {
+        pool[t].join();
+        total += per[t];
+    }
+    return total;
+}
+
+void store(const std::vector<Flop>& x, float* out) {
+    for (size_t k = 0; k < x.size(); ++k) out[k] = x[k].v;
+}
+
+}  // namespace
+
+// Same inputs and outputs as tests/kernels_host.cpp's ik_host; returns the
+// operation count over all n environments.
+extern "C" unsigned long long ik_count(const float* in, float* out, int n,
+                                       int num_iters, float tx, float ty,
+                                       float tz, int threads) {
+    std::vector<Flop> fin = data(in, 21L * n), fout(7L * n);
+    kin::V3 tip = {Flop::make(tx, false), Flop::make(ty, false),
+                   Flop::make(tz, false)};
+    unsigned long long ops = count_envs(n, threads, [&](int i) {
+        kin::ik_env(fin.data(), fout.data(), n, i, num_iters, tip);
+    });
+    store(fout, out);
+    return ops;
+}
+
+// Same inputs and outputs as engine_host; returns the operation count over
+// all n environments, or ~0 for a scene the library does not hold.
+extern "C" unsigned long long engine_count(int has_body, int plane_mask,
+                                           int geom_mask, const float* st,
+                                           const float* ctl, const float* prm,
+                                           float* out, int n, int n_sub,
+                                           int iters, int threads) {
+    std::vector<Flop> fst = data(st, 34L * n), fctl = data(ctl, 9L * n),
+                      fprm = data(prm, kin::N_PARAMS), fout(34L * n);
+#define ENGINE_CASE(HB, PM, GM)                                              \
+    if ((has_body != 0) == HB && plane_mask == PM && geom_mask == GM) {      \
+        unsigned long long ops = count_envs(n, threads, [&](int i) {         \
+            kin::engine_env<HB, PM, GM>(fst.data(), fctl.data(), fprm.data(), \
+                                        fout.data(), n, i, n_sub, iters);    \
+        });                                                                  \
+        store(fout, out);                                                    \
+        return ops;                                                          \
+    }
+    ENGINE_SCENES(ENGINE_CASE)
+#undef ENGINE_CASE
+    return ~0ULL;
+}

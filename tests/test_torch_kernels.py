@@ -1,0 +1,302 @@
+"""The port's CUDA kernels against their plain PyTorch versions.
+
+The tests marked ``cuda`` need a CUDA device and skip elsewhere; the file
+imports no JAX, so that it runs on a machine without it:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
+
+The tests on ``host_kernels`` build the kernels' per-environment device
+code with the host C++ compiler (tests/kernels_host.cpp) and hold it against
+the plain versions on the CPU, so that the kernel sources' arithmetic is
+checked where there is no card. Host libm and the CPU plain version round
+differently from the card, and the box of the 'drop' state lands flat, where
+an axis choice is a tie: after 2 substeps, within 1e-4 rad for K1 and 2e-3
+for K2 (the JAX package's engine bound; EE force 2e-3 / dt).
+
+Tolerances on the card, at the main path's 4096 envs: K1 1e-4 rad (the
+kernel sums in another order than the plain version). K2 on the main path's
+own inputs: every env within 1e-4 after 2 substeps and within 2e-3 after 100,
+the bound the JAX package holds its Pallas engine to against its XLA engine.
+K2 on the stress states, whose impulses run to thousands of newtons: there
+the plain version's own answer moves by far more than rounding in some envs
+when rounding moves by one ulp (a contact test or a joint stop flips). Each
+env agrees within the tolerance (1e-4 after 2 substeps, 2e-3 after 100) or
+within twice its own spread over 8 plain runs with 1-ulp noise in every
+substep (tests/torch_common.py:plain_run), whichever is larger.
+"""
+
+import ctypes
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from pybullet_multigoal_gym_tpu_torch import make_vec_env
+from pybullet_multigoal_gym_tpu_torch.model import kuka_model as KM
+from pybullet_multigoal_gym_tpu_torch.ops import _build, cuda_engine, cuda_ik
+from pybullet_multigoal_gym_tpu_torch.ops import dynamics as D
+from pybullet_multigoal_gym_tpu_torch.ops import engine_plain as EP
+from pybullet_multigoal_gym_tpu_torch.ops import ik
+from pybullet_multigoal_gym_tpu_torch.ops import scene as S
+from pybullet_multigoal_gym_tpu_torch.ops.cuda_engine import CudaEngine
+from pybullet_multigoal_gym_tpu_torch.ops.cuda_ik import CudaIK
+from tests import kernel_ops
+from tests.torch_common import (ARM_FIELDS, BODY_FIELDS, cuda, inputs,  # noqa: F401
+                                n, plain_run, t, torch_controls,
+                                torch_state, workspace_targets)
+
+torch.set_num_threads(1)
+
+N = 4096
+N_HOST = 256
+HOST_SRC = Path(__file__).resolve().parent / 'kernels_host.cpp'
+
+
+def env_errors(out, ref, fields):
+    """Per-env max |out - ref| over the state ``fields`` (numpy, (n,))."""
+    count = out.q.shape[0]
+    return np.max([np.abs(n(getattr(out, f)) - n(getattr(ref, f)))
+                   .reshape(count, -1).max(1) for f in fields], axis=0)
+
+
+# ------------------------------------------------------ host build, CPU
+@pytest.fixture(scope='module')
+def host_kernels(tmp_path_factory):
+    """The kernel sources built for the host (no FMA contraction, as on the
+    card); skips where there is no C++ compiler."""
+    cxx = shutil.which('g++') or shutil.which('c++')
+    if cxx is None:
+        pytest.skip('needs a host C++ compiler')
+    lib = tmp_path_factory.mktemp('kernels_host') / 'libkernels_host.so'
+    subprocess.run([cxx, '-std=c++17', '-O1', '-ffp-contract=off', '-shared',
+                    '-fPIC', '-o', str(lib), str(HOST_SRC)], check=True,
+                   capture_output=True, timeout=300)
+    so = ctypes.CDLL(str(lib))
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    so.ik_host.argtypes = [P, P, I, I, F, F, F]
+    so.engine_host.argtypes = [I, I, I, P, P, P, P, I, I, I]
+    so.ik_host.restype = so.engine_host.restype = ctypes.c_int
+    return so
+
+
+@pytest.mark.parametrize('iters', [8, 40])
+def test_ik_source_on_host_matches_plain(host_kernels, iters):
+    rng = np.random.default_rng(2)
+    tgt = t(workspace_targets(rng, N_HOST))
+    q0 = t(np.asarray(KM.KUKA_REST_POSE, np.float32)
+           + rng.uniform(-0.2, 0.2, (N_HOST, 7)))
+    packed = cuda_ik.pack(tgt, q_init=q0)
+    out = torch.empty((7, N_HOST))
+    assert host_kernels.ik_host(packed.data_ptr(), out.data_ptr(), N_HOST,
+                                iters, *CudaIK().tip_offset) == 0
+    np.testing.assert_allclose(n(out.t()), n(ik.solve(tgt, q_init=q0,
+                                                      num_iters=iters)),
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize('task', ['push', 'reach'])
+@pytest.mark.parametrize('control', ['ee', 'joint'])
+@pytest.mark.parametrize('kind', ['drop', 'contact'])
+def test_engine_source_on_host_matches_plain(host_kernels, task, control,
+                                             kind):
+    """Each scene the kernel library holds, 2 substeps."""
+    has_obj = task == 'push'
+    sc = D.scene_consts(S.single_step_scene(has_obj),
+                        ik_workspace=control == 'ee')
+    st, ctl = inputs(has_obj, kind, N_HOST, seed=1)
+    st, ctl = torch_state(st), torch_controls(ctl)
+    rows, ctl_rows = cuda_engine.pack(st, ctl)
+    prm = torch.tensor(cuda_engine.scene_params(sc), dtype=torch.float32)
+    out = torch.empty_like(rows)
+    assert host_kernels.engine_host(
+        int(sc.has_body), sc.plane_mask, sc.geom_mask, rows.data_ptr(),
+        ctl_rows.data_ptr(), prm.data_ptr(), out.data_ptr(), N_HOST, 2,
+        sc.solver_iters) == 0
+    out = cuda_engine.unpack(out, st)
+    ref = EP.control_step(sc, st, ctl, 2)
+    fields = ARM_FIELDS + (BODY_FIELDS if has_obj else ())
+    assert env_errors(out, ref, fields).max() <= 2e-3
+    np.testing.assert_allclose(n(out.ee_contact_force),
+                               n(ref.ee_contact_force), atol=2e-3 / D.DT_SUB)
+    if kind == 'contact':
+        assert np.abs(n(out.ee_contact_force)).max() > 1.0
+
+
+@pytest.mark.parametrize('task', ['reach', 'push', 'pick_and_place'])
+@pytest.mark.parametrize('joint_control', [False, True])
+def test_engine_library_holds_every_scene(task, joint_control):
+    """The (has a body, plane mask, box mask) of every scene the envs build
+    (ops/lane_cull.py decides the masks) is one `ENGINE_SCENES` instance of
+    engine.cu: a missing one would fail only at launch, on the card."""
+    text = (_build.CSRC / 'engine.cu').read_text()
+    table = text[text.index('#define ENGINE_SCENES'):]
+    table = table[:table.index('\n\n')]
+    held = {(hb == 'true', int(pm, 16), int(gm, 16)) for hb, pm, gm in
+            re.findall(r'X\((true|false),\s*(0x[0-9a-f]+),\s*(0x[0-9a-f]+)\)',
+                       table)}
+    assert len(held) == 4
+    sc = make_vec_env(num_envs=1, task=task, joint_control=joint_control,
+                      device='cpu').core.scene
+    assert (sc.has_body, sc.plane_mask, sc.geom_mask) in held
+
+
+# ---------------------------------------------- operation count, CPU
+@pytest.fixture(scope='module')
+def count_kernels(tmp_path_factory):
+    """tests/kernels_count.cpp built for the host; skips where there is no
+    C++ compiler."""
+    if not (shutil.which('g++') or shutil.which('c++')):
+        pytest.skip('needs a host C++ compiler')
+    return kernel_ops.build(tmp_path_factory.mktemp('kernels_count'))
+
+
+@pytest.mark.parametrize('task', ['push', 'reach'])
+@pytest.mark.parametrize('control', ['ee', 'joint'])
+@pytest.mark.parametrize('kind', ['drop', 'contact'])
+def test_engine_count_build_runs_the_host_build(host_kernels, count_kernels,
+                                                 task, control, kind):
+    """The counting build computes exactly what the float build computes,
+    so its count is that of the same branches; the count grows with the
+    substeps and is zero for none."""
+    has_obj = task == 'push'
+    sc = D.scene_consts(S.single_step_scene(has_obj),
+                        ik_workspace=control == 'ee')
+    st, ctl = inputs(has_obj, kind, 32, seed=1)
+    st, ctl = torch_state(st), torch_controls(ctl)
+    rows, ctl_rows = cuda_engine.pack(st, ctl)
+    prm = torch.tensor(cuda_engine.scene_params(sc), dtype=torch.float32)
+    out = torch.empty_like(rows)
+    assert host_kernels.engine_host(
+        int(sc.has_body), sc.plane_mask, sc.geom_mask, rows.data_ptr(),
+        ctl_rows.data_ptr(), prm.data_ptr(), out.data_ptr(), 32, 3,
+        sc.solver_iters) == 0
+    ops, counted = kernel_ops.engine_ops(count_kernels, sc, st, ctl, 3)
+    for f in ARM_FIELDS + BODY_FIELDS + ('ee_contact_force',):
+        assert torch.equal(getattr(counted, f),
+                           getattr(cuda_engine.unpack(out, st), f)), f
+    ops1, _ = kernel_ops.engine_ops(count_kernels, sc, st, ctl, 1)
+    assert 0 < ops1 < ops
+    assert kernel_ops.engine_ops(count_kernels, sc, st, ctl, 0)[0] == 0
+
+
+@pytest.mark.parametrize('iters', [0, 1, 8])
+def test_ik_count_build_runs_the_host_build(host_kernels, count_kernels,
+                                            iters):
+    """Bit for bit the host build's answer. With no iteration the kernel
+    only clamps 7 data angles to known limits: a max and a min each."""
+    rng = np.random.default_rng(3)
+    tgt = t(workspace_targets(rng, 32))
+    q0 = t(np.asarray(KM.KUKA_REST_POSE, np.float32)
+           + rng.uniform(-0.2, 0.2, (32, 7)))
+    packed = cuda_ik.pack(tgt, q_init=q0)
+    out = torch.empty((7, 32))
+    assert host_kernels.ik_host(packed.data_ptr(), out.data_ptr(), 32, iters,
+                                *CudaIK().tip_offset) == 0
+    ops, counted = kernel_ops.ik_ops(count_kernels, tgt, q_init=q0,
+                                     num_iters=iters)
+    assert torch.equal(counted, out.t())
+    if iters == 0:
+        assert ops == 32 * 14
+    else:
+        assert ops > 32 * 14 * iters
+
+
+def test_count_rules(count_kernels):
+    """What counts, on K1 from targets one iteration apart: the second half
+    of the iterations skips the null-space solve, so it costs less."""
+    rng = np.random.default_rng(4)
+    tgt = t(workspace_targets(rng, 16))
+    ops = [kernel_ops.ik_ops(count_kernels, tgt, num_iters=k)[0]
+           for k in (0, 1, 2)]
+    # num_iters=1: one iteration without the pull; 2: one with, one without
+    no_pull = ops[1] - ops[0]
+    with_pull = ops[2] - ops[1]
+    assert 0 < no_pull < with_pull
+
+
+# ------------------------------------------------------------ the card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('iters', [8, 40])
+def test_ik_kernel_matches_plain(cuda, iters):
+    rng = np.random.default_rng(2)
+    tgt = t(workspace_targets(rng, N), cuda)
+    q0 = t(np.asarray(KM.KUKA_REST_POSE, np.float32)
+           + rng.uniform(-0.2, 0.2, (N, 7)), cuda)
+    w = CudaIK(num_iters=iters)
+    out = w.solve(tgt, q_init=q0)
+    torch.cuda.synchronize()
+    assert w.launches == 1
+    ref = ik.solve(tgt, q_init=q0, num_iters=iters)
+    np.testing.assert_allclose(n(out), n(ref), atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('task', ['push', 'reach'])
+@pytest.mark.parametrize('control', ['ee', 'joint'])
+@pytest.mark.parametrize('kind', ['drop', 'contact'])
+@pytest.mark.parametrize('n_sub', [2, 100])
+def test_engine_kernel_matches_plain(cuda, task, control, kind, n_sub):
+    """Each scene the kernel library holds: reach and push, with the
+    arm-sphere lanes of EE control or all of them (joint control)."""
+    has_obj = task == 'push'
+    sc = D.scene_consts(S.single_step_scene(has_obj),
+                        ik_workspace=control == 'ee')
+    st, ctl = inputs(has_obj, kind, N, seed=1)
+    st, ctl = torch_state(st, cuda), torch_controls(ctl, cuda)
+    w = CudaEngine(sc)
+    out = w.control_step(st, ctl, n_substeps=n_sub)
+    torch.cuda.synchronize()
+    assert w.launches == 1
+    ref = EP.control_step(sc, st, ctl, n_sub)
+    fields = ARM_FIELDS + (BODY_FIELDS if has_obj else ())
+    err = env_errors(out, ref, fields)
+    spread = np.max([env_errors(plain_run(sc, st, ctl, n_sub, seed)[0], ref,
+                                fields) for seed in range(8)], axis=0)
+    tol = 1e-4 if n_sub == 2 else 2e-3
+    assert (err <= np.maximum(tol, 2.0 * spread)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('task', ['push', 'reach'])
+@pytest.mark.parametrize('n_sub,tol', [(2, 1e-4), (100, 2e-3)])
+def test_engine_kernel_matches_plain_on_main_path(cuda, task, n_sub, tol):
+    """The control step's inputs at step 26 of a seeded push or reach drive
+    at 4096 envs: every env within 1e-4 after 2 substeps and within 2e-3
+    after the full 100."""
+    env = make_vec_env(num_envs=N, task=task, seed=2)
+    state, _ = env.reset()
+    g = torch.Generator(device=cuda).manual_seed(2)
+    for _ in range(25):
+        state, *_ = env.step(state, 2 * torch.rand(
+            (N, env.cfg.action_dim), generator=g, device=cuda) - 1)
+    state, f_target = env.core.step_decode_pre(state, torch.zeros(
+        (N, env.cfg.action_dim), device=cuda))
+    zero = state.phys.door_q
+    ctl = D.Controls(q_target=env.core.arm_targets(state), f_target=f_target,
+                     door_motor_on=zero > 0, door_target=zero)
+    w = CudaEngine(env.core.scene)
+    out = w.control_step(state.phys, ctl, n_substeps=n_sub)
+    ref = EP.control_step(env.core.scene, state.phys, ctl, n_sub)
+    fields = ARM_FIELDS + (BODY_FIELDS if task == 'push' else ())
+    assert env_errors(out, ref, fields).max() <= tol
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_check_operands(cuda):
+    """A wrong dtype or shape raises before any launch."""
+    w = CudaIK(num_iters=8)
+    with pytest.raises(TypeError):
+        w.solve(torch.zeros((8, 3), dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError):
+        w.solve(torch.zeros((8, 3), device=cuda),
+                q_init=torch.zeros((8, 6), device=cuda))
+    with pytest.raises(ValueError, match='contiguous'):
+        w.launch(torch.zeros((21, 8), device=cuda),
+                 torch.zeros((8, 7), device=cuda).t())
+    assert w.launches == 0
