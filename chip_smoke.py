@@ -5,10 +5,12 @@
 
 Builds the port's hand-written kernels from `pybullet_multigoal_gym_tpu_torch/
 csrc/` (nvcc, sm_90a), holds each against its plain PyTorch version on the
-card (on the inputs the main path gives it and on stress inputs), drives the
-main path (`make_vec_env(task='push', num_envs=4096)`, 60 steps across one
-auto-reset, then reach for 5 steps) and checks that it went through the
-kernels. One JSON line per check or phase; the kernels line, the card's
+card (on the inputs the main paths give it and on stress inputs), drives the
+main paths and checks that they went through the kernels: push
+(`make_vec_env(task='push', num_envs=4096)`, 60 steps across one auto-reset,
+then reach for 5 steps) on K1 and K2, block_rearrange with 2 blocks (4096
+envs, 60 steps across one auto-reset) and block_stack with 5 (1024 envs) on
+K1 and K3. One JSON line per check or phase; the kernels line, the card's
 name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Stops at the first failure with a non-zero
 exit and no result; exits non-zero without a CUDA device or without the
@@ -24,6 +26,8 @@ from pathlib import Path
 
 N_ENVS = 4096
 MAIN_STEPS, TIMED_FROM = 60, 10
+# block_stack with 5 blocks runs at 1024 envs (the README's configuration)
+STACK_ENVS, STACK_STEPS, STACK_TIMED_FROM = 1024, 20, 5
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 (non-tensor)
 # operations/s; a card below 700 W runs slower than these
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -69,27 +73,28 @@ def bound_ms(n_bytes, n_ops):
     return max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops else 'operations'
 
 
-def main_path_inputs(torch, port, task, at=(0, 25), seed=2):
-    """What K1 and K2 are given on the main path: a seeded drive of ``task``
-    at N_ENVS, and at each step index in ``at`` the IK target, its warm
-    start and rest pose, the physics state and the controls, taken as
-    `VecMGEnv.step` makes them."""
+def main_path_inputs(torch, port, task, at=(0, 25), seed=2, num_envs=N_ENVS,
+                     **kw):
+    """What K1 and the control-step kernel are given on a main path: a
+    seeded drive of ``task`` at ``num_envs``, and at each step index in
+    ``at`` the IK target, its warm start and rest pose, the physics state
+    and the controls, taken as `VecMGEnv.step` makes them."""
     from pybullet_multigoal_gym_tpu_torch.ops import dynamics as D
-    env = port.make_vec_env(num_envs=N_ENVS, task=task, seed=seed)
+    env = port.make_vec_env(num_envs=num_envs, task=task, seed=seed, **kw)
     core = env.core
-    rest = torch.as_tensor(core.rest_pose, device='cuda').expand(N_ENVS, 7)
+    rest = torch.as_tensor(core.rest_pose, device='cuda').expand(num_envs, 7)
     state, _ = env.reset()
     g = torch.Generator(device='cuda').manual_seed(seed)
     out = []
     for i in range(max(at) + 1):
-        action = 2 * torch.rand((N_ENVS, env.cfg.action_dim), generator=g,
+        action = 2 * torch.rand((num_envs, env.cfg.action_dim), generator=g,
                                 device='cuda') - 1
         if i in at:
             dec, f_target = core.step_decode_pre(state, action)
             zero = dec.phys.door_q
             out.append(dict(
                 step=i + 1, target=dec.ee_target, q_init=dec.phys.q, rest=rest,
-                phys=dec.phys, controls=D.Controls(
+                phys=dec.phys, scene=core.scene, controls=D.Controls(
                     q_target=core.arm_targets(dec), f_target=f_target,
                     door_motor_on=zero > 0, door_target=zero)))
         state, *_ = env.step(state, action)
@@ -117,8 +122,9 @@ def phase_ik(captured, count_lib):
              ('workspace box', 40, tgt, q0, rest)]
     for task, inputs in captured.items():
         for c in inputs:
-            cases.append(('%s main path, step %d' % (task, c['step']), 8,
-                          c['target'], c['q_init'], c['rest']))
+            if c['target'].shape[0] == N_ENVS:
+                cases.append(('%s main path, step %d' % (task, c['step']), 8,
+                              c['target'], c['q_init'], c['rest']))
     worst, kernel_ms = 0.0, {}
     for name, iters, tg, q, r in cases:
         w = CudaIK(num_iters=iters)
@@ -158,7 +164,8 @@ def engine_inputs(has_obj, kind):
     them (tests/torch_common.py): 'drop' is the JAX package's own parity
     state (rest pose, a box dropped beside the fingers); 'contact' holds the
     arm low over the table with the box between the finger pads, so
-    finger-box, finger-plane and arm-sphere lanes all act."""
+    finger-box, finger-plane and arm-sphere lanes all act; 'sphere' lowers a
+    wrist or elbow sphere onto the table (joint control)."""
     from tests.torch_common import inputs, torch_controls, torch_state
     st, ctl = inputs(has_obj, kind, N_ENVS)
     return torch_state(st, 'cuda'), torch_controls(ctl, 'cuda')
@@ -173,12 +180,64 @@ def env_errors(out, ref, n_fields):
 
 
 # the K2 checks beyond the main path: (task, control, stress state); the
-# joint-control scene keeps every arm-sphere lane
+# joint-control scene keeps every arm-sphere lane. The drop states, the
+# least contact-rich, are checked after 2 substeps only (the card tests
+# hold them after 100 too).
 STRESS = (('push', 'ee', 'drop'), ('push', 'ee', 'contact'),
-          ('push', 'joint', 'contact'), ('reach', 'ee', 'drop'),
-          ('reach', 'ee', 'contact'))
+          ('push', 'joint', 'contact'), ('push', 'joint', 'sphere'),
+          ('reach', 'ee', 'drop'), ('reach', 'ee', 'contact'))
 N_NOISE = 8          # plain runs with 1-ulp noise per stress check
 SPREAD_FACTOR = 2.0  # an env may part by twice the plain version's spread
+
+
+def stress_check(phase, kernel, sc, w, st, ctl, n_fields, calibrated=False,
+                 flat_first=False, substeps=((2, 1e-4), (100, 2e-3)), **tag):
+    """A control-step kernel against its plain version after ``substeps``
+    (2 and 100; the tolerance of each): each env within the tolerance (1e-4, 2e-3) or within
+    SPREAD_FACTOR times its spread over N_NOISE plain runs with 1-ulp noise
+    (tests/torch_common.py:noise_bound), whichever is larger. With
+    ``calibrated`` (K3), as many envs may lie beyond their bound as a noisy
+    plain run itself puts beyond the bound the other runs set. With
+    ``flat_first`` (a main path) the noisy runs are made only where an env
+    parts by more than the tolerance."""
+    import torch
+    from tests.torch_common import noise_bound, plain_run
+    worst = 0.0
+    for n_sub, tol in substeps:
+        out = w.control_step(st, ctl, n_substeps=n_sub)
+        ref, active = plain_run(sc, st, ctl, n_sub)
+        e = env_errors(out, ref, n_fields)
+        worst = max(worst, float(e.max()))
+        if flat_first and not e.max() > tol:
+            bound, spread, allowed = torch.full_like(e, tol), None, 0
+        else:
+            bound, spread, allowed = noise_bound(
+                sc, st, ctl, n_sub, ref,
+                lambda a, b: env_errors(a, b, n_fields), tol, N_NOISE,
+                SPREAD_FACTOR)
+            allowed = allowed if calibrated else 0
+        beyond = torch.nonzero(e > bound).flatten()
+        noise = {} if spread is None else dict(
+            plain_noise_envs_beyond_tol=int((spread > tol).sum()),
+            plain_noise_max_spread=float(spread.max()),
+            envs_beyond_allowed=allowed)
+        emit(phase, **tag, substeps=n_sub, envs=st.q.shape[0],
+             max_abs_err=float(e.max()), median_abs_err=float(e.median()),
+             tol=tol, envs_beyond_tol=int((e > tol).sum()), **noise,
+             max_share_of_env_bound=float((e / bound).max()),
+             envs_beyond_env_bound=int(beyond.numel()), lanes_active=active,
+             max_ee_force=float(out.ee_contact_force.abs().max()))
+        if beyond.numel() > allowed:
+            b = beyond[:8]
+            raise AssertionError(
+                '%s (%s, %d substeps) disagrees with its plain version in '
+                'envs %s: %s against their bounds %s'
+                % (kernel, tag, n_sub, b.tolist(), e[b].tolist(),
+                   bound[b].tolist()))
+        if tag.get('inputs') == 'sphere' and not active['sphere-plane'] > 0:
+            raise AssertionError('the sphere state activates no sphere-plane '
+                                 'lane: %s' % active)
+    return worst
 
 
 def phase_engine(kernels, captured, count_lib):
@@ -244,32 +303,10 @@ def phase_engine(kernels, captured, count_lib):
         sc, w = engine(task, control)
         n_fields = 8 if task == 'push' else 4
         st, ctl = engine_inputs(task == 'push', kind)
-        for n_sub, tol in ((2, 1e-4), (100, 2e-3)):
-            out = w.control_step(st, ctl, n_substeps=n_sub)
-            ref, active = plain_run(sc, st, ctl, n_sub)
-            e = env_errors(out, ref, n_fields)
-            spread = torch.stack([
-                env_errors(plain_run(sc, st, ctl, n_sub, seed)[0], ref,
-                           n_fields) for seed in range(N_NOISE)]).max(0).values
-            bound = torch.clamp(SPREAD_FACTOR * spread, min=tol)
-            beyond = torch.nonzero(e > bound).flatten()
-            emit('k2_vs_plain', task=task, control=control, inputs=kind,
-                 substeps=n_sub, envs=N_ENVS, max_abs_err=float(e.max()),
-                 median_abs_err=float(e.median()), tol=tol,
-                 envs_beyond_tol=int((e > tol).sum()),
-                 plain_noise_envs_beyond_tol=int((spread > tol).sum()),
-                 plain_noise_max_spread=float(spread.max()),
-                 max_share_of_env_bound=float((e / bound).max()),
-                 envs_beyond_env_bound=int(beyond.numel()),
-                 lanes_active=active,
-                 max_ee_force=float(out.ee_contact_force.abs().max()))
-            if beyond.numel():
-                b = beyond[:8]
-                raise AssertionError(
-                    'K2 (%s, %s control, %s state, %d substeps) disagrees '
-                    'with its plain version in envs %s: %s against their '
-                    'bounds %s' % (task, control, kind, n_sub, b.tolist(),
-                                   e[b].tolist(), bound[b].tolist()))
+        stress_check('k2_vs_plain', 'K2', sc, w, st, ctl, n_fields,
+                     substeps=((2, 1e-4),) if kind == 'drop' else
+                     ((2, 1e-4), (100, 2e-3)),
+                     task=task, control=control, inputs=kind)
 
     for task in ('push', 'reach'):
         sc, w = engine(task, 'ee')
@@ -291,14 +328,128 @@ def phase_engine(kernels, captured, count_lib):
     return res
 
 
-def drive(torch, port, task, steps, seed):
-    """``steps`` env steps of seeded actions through the public entry point;
-    the kernel launch counts are zeroed just before and read just after."""
-    env = port.make_vec_env(num_envs=N_ENVS, task=task, seed=seed)
+# the K3 checks beyond the main path: (blocks, control, stress state); the
+# joint-control scene keeps every arm-sphere lane
+K3_STRESS = ((2, 'ee', 'contact'), (5, 'ee', 'contact'), (2, 'joint', 'sphere'))
+N_FIELDS = 8        # q, qd, fq, fqd and the bodies' pos, quat, linvel, angvel
+
+
+def phase_multibody(kernels, captured, count_lib):
+    """K3 against ops/multibody_plain.py on the card.
+
+    - The main paths' own inputs (block_rearrange with 2 blocks at steps 1
+      and 26 of a seeded drive at 4096 envs, block_stack with 5 at step 26
+      at 1024): every env within 1e-4 after 2 substeps and within 2e-3 after
+      the full 100, but where the fingers push a block and the plain
+      version's own noisy runs part by more than that; there the env is
+      held to its noise bound (`stress_check`, ``flat_first``).
+      ``lanes_active`` says which lane groups act.
+    - The stress states (``K3_STRESS``: the block pile the fingers squeeze,
+      and a wrist or elbow sphere on the table under joint control): each
+      env within the flat bound or SPREAD_FACTOR times its spread over
+      N_NOISE noisy plain runs, whichever is larger; after 100 substeps of
+      the pile, a few envs take a branch of a contact decision (a pad and a
+      block face nearly parallel: the SAT axis choice) that no noisy run
+      takes, so as many envs may lie beyond their bound as a noisy run
+      itself puts beyond the others' (``calibrated``).
+
+    Timed on both main paths' step-26 inputs: the kernel alone on inputs
+    packed once (``ms``) and the wrapper's whole call (``call_ms``); the
+    operations are counted on the same inputs."""
+    import torch
+    from pybullet_multigoal_gym_tpu_torch.ops import dynamics as D
+    from pybullet_multigoal_gym_tpu_torch.ops import multibody_plain as MP
+    from pybullet_multigoal_gym_tpu_torch.ops import scene as S
+    from pybullet_multigoal_gym_tpu_torch.ops.cuda_multibody import (
+        CudaMultiBodyEngine, n_rows, pack)
+    from tests.kernel_ops import multibody_ops
+    from tests.torch_common import multi_inputs, torch_controls, torch_state
+    worst = 0.0
+    for c in captured['block_rearrange']:
+        worst = max(worst, stress_check(
+            'k3_vs_plain', 'K3', c['scene'], CudaMultiBodyEngine(c['scene']),
+            c['phys'], c['controls'], N_FIELDS, calibrated=True,
+            flat_first=True, task='block_rearrange', blocks=c['scene'].nb,
+            control='ee', inputs='main path, step %d' % c['step']))
+    c = captured['block_stack'][-1]
+    stress_check('k3_vs_plain', 'K3', c['scene'], CudaMultiBodyEngine(
+        c['scene']), c['phys'], c['controls'], N_FIELDS, calibrated=True,
+        flat_first=True, task='block_stack', blocks=c['scene'].nb,
+        control='ee', inputs='main path, step %d' % c['step'])
+    for nb, control, kind in K3_STRESS:
+        sc = D.multibody_consts(S.multi_step_scene(nb),
+                                ik_workspace=control == 'ee')
+        st, ctl = multi_inputs(nb, kind, N_ENVS)
+        stress_check('k3_vs_plain', 'K3', sc, CudaMultiBodyEngine(sc),
+                     torch_state(st, 'cuda'), torch_controls(ctl, 'cuda'),
+                     N_FIELDS, calibrated=True, blocks=nb, control=control,
+                     inputs=kind)
+
+    res = {}
+    for task in ('block_rearrange', 'block_stack'):
+        c = captured[task][-1]
+        sc, st, ctl = c['scene'], c['phys'], c['controls']
+        w = CudaMultiBodyEngine(sc)
+        n = st.q.shape[0]
+        rows, ctl_rows = pack(st, ctl)
+        out = torch.empty_like(rows)
+        ms = time_ms(lambda: w.launch(rows, ctl_rows, out, 100), 10)
+        call_ms = time_ms(lambda: w.control_step(st, ctl), 10)
+        plain_ms = time_ms(lambda: MP.control_step(sc, st, ctl, 100), 1)
+        ops, _ = multibody_ops(count_lib, sc, st, ctl, 100)
+        b_ms, b_by = bound_ms(n * (2 * n_rows(sc.nb) + 11) * 4, ops)
+        res[task] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, ops=ops)
+        emit('k3_timing', task=task, blocks=sc.nb,
+             inputs='main path, step %d' % c['step'], substeps=100, envs=n,
+             lanes=len(MP.lane_plan(sc)), **res[task],
+             ptxas=[p for p in kernels['multibody'].ptxas
+                    if 'ILi%dELi%dELi%dE' % (sc.nb, sc.plane_mask,
+                                             sc.geom_mask) in p['function']])
+    res['block_rearrange']['max_abs_err'] = worst
+    return res
+
+
+def phase_multi_main(torch, port):
+    """The multi-step main paths: block_rearrange with 2 blocks at 4096 envs
+    for 60 steps (auto-reset at step 50), the same 64 envs stepped once on
+    the card and on the CPU from one state, then block_stack with 5 blocks
+    at 1024 envs for STACK_STEPS steps."""
+    env, state, res = drive(torch, port, 'block_rearrange', MAIN_STEPS,
+                            seed=0, num_block=2)
+    emit('block_rearrange_path', card=card_line(), **res)
+    want = dict(ik=MAIN_STEPS, engine=MAIN_STEPS)
+    if not (res['obs_finite'] and res['shapes_ok']
+            and res['done_steps'] == [50] and res['all_done_steps'] == [50]
+            and res['launches'] == want):
+        raise AssertionError('block_rearrange path check failed: %s' % res)
+    err = plain_path_check(torch, port, 'block_rearrange', state, env,
+                           num_block=2)
+    emit('block_rearrange_vs_plain', task='block_rearrange', blocks=2,
+         envs=64, steps=1, max_abs_err_obs=err, tol=5e-3)
+    if not err <= 5e-3:
+        raise AssertionError('block_rearrange: the kernel path disagrees '
+                             'with the plain path: %g' % err)
+    _, _, stack = drive(torch, port, 'block_stack', STACK_STEPS, seed=1,
+                        num_envs=STACK_ENVS, timed_from=STACK_TIMED_FROM,
+                        num_block=5)
+    emit('block_stack_path', card=card_line(), **stack)
+    if not (stack['obs_finite'] and stack['shapes_ok']
+            and stack['launches'] == dict(ik=STACK_STEPS, engine=STACK_STEPS)):
+        raise AssertionError('block_stack path check failed: %s' % stack)
+    return res, stack
+
+
+def drive(torch, port, task, steps, seed, num_envs=N_ENVS,
+          timed_from=TIMED_FROM, **kw):
+    """``steps`` env steps of seeded actions through the public entry point,
+    timed from step ``timed_from`` on; the kernel launch counts are zeroed
+    just before and read just after."""
+    env = port.make_vec_env(num_envs=num_envs, task=task, seed=seed, **kw)
     state, obs = env.reset()
     g = torch.Generator(device='cuda').manual_seed(seed)
-    actions = 2 * torch.rand((steps, N_ENVS, env.cfg.action_dim), generator=g,
-                             device='cuda') - 1
+    actions = 2 * torch.rand((steps, num_envs, env.cfg.action_dim),
+                             generator=g, device='cuda') - 1
     dims = {k: tuple(v.shape) for k, v in obs.items()}
     done_at = []
     finite = torch.ones((), dtype=torch.bool, device='cuda')
@@ -306,7 +457,7 @@ def drive(torch, port, task, steps, seed):
     torch.cuda.synchronize()
     t0 = None
     for i in range(steps):
-        if i == TIMED_FROM:
+        if i == timed_from:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
         state, obs, reward, done, info = env.step(state, actions[i])
@@ -319,19 +470,37 @@ def drive(torch, port, task, steps, seed):
     done_steps = [i + 1 for i, d in enumerate(done_at) if bool(d.any())]
     all_done = [i + 1 for i, d in enumerate(done_at) if bool(d.all())]
     shapes_ok = {k: tuple(v.shape) for k, v in obs.items()} == dims
-    rate = (steps - TIMED_FROM) * N_ENVS / elapsed if elapsed else None
-    return env, state, dict(task=task, envs=N_ENVS, steps=steps,
+    rate = (steps - timed_from) * num_envs / elapsed if elapsed else None
+    return env, state, dict(task=task, **kw, envs=num_envs, steps=steps,
+                            timed_steps=[timed_from + 1, steps] if elapsed
+                            else None,
                             launches=launches, done_steps=done_steps,
                             all_done_steps=all_done, obs_finite=bool(finite),
                             obs_shapes=dims, shapes_ok=shapes_ok,
                             env_steps_per_s=rate)
 
 
+def plain_path_check(torch, port, task, state, env, **kw):
+    """The kernels' path against the plain path: the first 64 envs of
+    ``state`` stepped once on the card and on the CPU; observations within
+    5e-3."""
+    from pybullet_multigoal_gym_tpu_torch import interop
+    leaves = {k: v[:64] for k, v in interop.state_to_numpy(state).items()}
+    g = torch.Generator().manual_seed(5)
+    action = 2 * torch.rand((64, env.cfg.action_dim), generator=g) - 1
+    obs = {}
+    for dev in ('cuda', 'cpu'):
+        e = port.make_vec_env(num_envs=64, task=task, device=dev, **kw)
+        s = interop.state_from_numpy(leaves, device=dev)
+        _, o, _, _, _ = e.step(s, action.to(dev))
+        obs[dev] = o['observation'].cpu()
+    return float((obs['cuda'] - obs['cpu']).abs().max())
+
+
 def phase_main(torch, port):
     """The main path: push@4096 for 60 steps (auto-reset at step 50), then
     the same 64 envs stepped once on the card and on the CPU from one state,
     then reach@4096 for 5 steps."""
-    from pybullet_multigoal_gym_tpu_torch import interop
     card = card_line()
     env, state, res = drive(torch, port, 'push', MAIN_STEPS, seed=0)
     emit('main_path', card=card, **res)
@@ -342,16 +511,7 @@ def phase_main(torch, port):
         raise AssertionError('main path check failed: %s' % res)
 
     # the kernels' path against the plain path on a small input
-    leaves = {k: v[:64] for k, v in interop.state_to_numpy(state).items()}
-    g = torch.Generator().manual_seed(5)
-    action = 2 * torch.rand((64, env.cfg.action_dim), generator=g) - 1
-    obs = {}
-    for dev in ('cuda', 'cpu'):
-        e = port.make_vec_env(num_envs=64, task='push', device=dev)
-        s = interop.state_from_numpy(leaves, device=dev)
-        _, o, _, _, _ = e.step(s, action.to(dev))
-        obs[dev] = o['observation'].cpu()
-    err = float((obs['cuda'] - obs['cpu']).abs().max())
+    err = plain_path_check(torch, port, 'push', state, env)
     emit('main_path_vs_plain', task='push', envs=64, steps=1,
          max_abs_err_obs=err, tol=5e-3)
     if not err <= 5e-3:
@@ -398,12 +558,19 @@ def main():
 
     captured = {task: main_path_inputs(torch, port, task)
                 for task in ('push', 'reach')}
+    captured['block_rearrange'] = main_path_inputs(
+        torch, port, 'block_rearrange', num_block=2)
+    captured['block_stack'] = main_path_inputs(
+        torch, port, 'block_stack', at=(25,), num_envs=STACK_ENVS,
+        num_block=5)
     ik_res = phase_ik(captured, count_lib)
     eng_res = phase_engine(kernels, captured, count_lib)
     main_res = phase_main(torch, port)
+    mb_res = phase_multibody(kernels, captured, count_lib)
+    multi_res, _ = phase_multi_main(torch, port)
 
     launches = main_res['launches']
-    k1, k2 = ik_res, eng_res['push']
+    k1, k2, k3 = ik_res, eng_res['push'], mb_res['block_rearrange']
     print(json.dumps({'kernels': [
         dict(name='K1 batched DLS IK (8 iterations)', route='cuda',
              source='pybullet_multigoal_gym_tpu_torch/csrc/ik.cu',
@@ -420,6 +587,16 @@ def main():
              max_abs_err=max(r['max_abs_err'] for r in eng_res.values()),
              ms=k2['ms'], plain_ms=k2['plain_ms'], bound_ms=k2['bound_ms'],
              bound_by=k2['bound_by'], library_ms=None),
+        dict(name='K3 fused multi-body control step (block_rearrange, 2 '
+                  'blocks, 100 substeps)', route='cuda',
+             source='pybullet_multigoal_gym_tpu_torch/csrc/multibody.cu',
+             replaces='pybullet_multigoal_gym_tpu/ops/pallas_multibody.py:259',
+             launches=multi_res['launches']['engine'],
+             # over block_rearrange's main-path inputs (the stress states
+             # are held to each env's own bound: see k3_vs_plain)
+             max_abs_err=k3['max_abs_err'], ms=k3['ms'],
+             plain_ms=k3['plain_ms'], bound_ms=k3['bound_ms'],
+             bound_by=k3['bound_by'], library_ms=None),
     ]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -6,7 +6,8 @@
 // the one-free-box scene. Same physics as ops/engine_plain.py, the plain
 // PyTorch version it is checked against: arm and finger servos, gravity, FK,
 // the contact lanes (box-plane corners, finger-box SAT manifolds, finger-plane
-// corners, the arm-sphere lanes kept by ops/lane_cull.py), an 8-iteration
+// corners, the arm-sphere lanes kept by ops/lane_cull.py; their geometry is in
+// lanes.cuh, shared with K3), an 8-iteration
 // mass-splitting Jacobi solve with Baumgarte bias and a friction clamp,
 // frozen-arm joint coupling, integration and the EE contact-force readback.
 //
@@ -29,7 +30,7 @@
 // about one warp per SM, far below what the card holds; spreading an
 // environment's lanes over a warp is later work.
 
-#include "kin.cuh"
+#include "lanes.cuh"
 
 namespace kin {
 
@@ -76,139 +77,6 @@ struct Lanes {
         cpl[l] = cp; esg[l] = es;
     }
 };
-
-// The 4 corners of the box face most facing direction d
-// (pallas_engine.py:incident_corner_tiles).
-KDEV void incident_corners(V3 c, const M3& R, const float h[3], V3 d,
-                           V3 out[4]) {
-    float dots[3] = {dot(d, col(R, 0)), dot(d, col(R, 1)), dot(d, col(R, 2))};
-    float a0 = fabsf(dots[0]), a1 = fabsf(dots[1]), a2 = fabsf(dots[2]);
-    int k = (a0 >= a1 && a0 >= a2) ? 0 : (a1 >= a2 ? 1 : 2);
-    int k1 = (k + 1) % 3, k2 = (k + 2) % 3;
-    V3 f = (sgnf(dots[k]) * h[k]) * col(R, k);
-    V3 u = h[k1] * col(R, k1);
-    V3 v = h[k2] * col(R, k2);
-    V3 base = c + f;
-    out[0] = base - u - v;
-    out[1] = base - u + v;
-    out[2] = base + u - v;
-    out[3] = base + u + v;
-}
-
-KDEV float proj(const M3& R, const float h[3], V3 L) {
-    return fabsf(dot(col(R, 0), L)) * h[0] + fabsf(dot(col(R, 1), L)) * h[1] +
-           fabsf(dot(col(R, 2), L)) * h[2];
-}
-
-KDEV float point_in_box(V3 p, V3 c, const M3& R, const float h[3]) {
-    V3 rel = p - c;
-    bool in = true;
-#pragma unroll
-    for (int i = 0; i < 3; ++i) in = in && (h[i] - fabsf(dot(col(R, i), rel)) > -1e-4f);
-    return in ? 1.0f : 0.0f;
-}
-
-KDEV V3 clamp_into_box(V3 p, V3 c, const M3& R, const float h[3]) {
-    V3 rel = p - c;
-    V3 loc = {clampf(dot(col(R, 0), rel), -h[0], h[0]),
-              clampf(dot(col(R, 1), rel), -h[1], h[1]),
-              clampf(dot(col(R, 2), rel), -h[2], h[2])};
-    return c + mat3vec(R, loc);
-}
-
-// 4-lane box vs plane: the bottom-face incident corners.
-template <int L>
-KDEV void box_plane_lanes(Lanes<L>& ls, V3 c, const M3& R, const float h[3],
-                          float plane_z, float mu, float bs, int fi, float fs,
-                          int lk, float as, float cp, float es) {
-    V3 cs[4];
-    incident_corners(c, R, h, V3{0.0f, 0.0f, -1.0f}, cs);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-        float pen = plane_z - cs[k].z;
-        ls.add(cs[k], V3{0.0f, 0.0f, 1.0f}, pen, pen > -1e-4f ? 1.0f : 0.0f,
-               mu, bs, fi, fs, lk, as, cp, es);
-    }
-}
-
-// 9-lane SAT box (A) vs box (B) manifold: 4 incident-face corners of A in B,
-// 4 of B in A, 1 cross-piercing fallback (pallas_engine.py:sat_box_box_lanes).
-template <int L>
-KDEV void sat_box_box_lanes(Lanes<L>& ls, V3 ca, const M3& Ra,
-                            const float ha[3], V3 cb, const M3& Rb,
-                            const float hb[3], float mu, float bs, int fi,
-                            float fs, int lk, float as, float cp, float es) {
-    V3 t = ca - cb;
-    float best = 0.0f, sat_ok = 1.0f;
-    V3 n = {0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int a = 0; a < 6; ++a) {
-        V3 Lx = a < 3 ? col(Ra, a) : col(Rb, a - 3);
-        float tl = dot(t, Lx);
-        float ov = proj(Ra, ha, Lx) + proj(Rb, hb, Lx) - fabsf(tl);
-        sat_ok = sat_ok * (ov > -1e-4f ? 1.0f : 0.0f);
-        if (a == 0 || ov < best) {
-            best = ov;
-            n = Lx * sgnf(tl);
-        }
-    }
-    float ra_n = proj(Ra, ha, n), rb_n = proj(Rb, hb, n);
-    float inside_any = 0.0f;
-    V3 cs[4];
-    incident_corners(ca, Ra, ha, -n, cs);         // A corners toward B
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-        float pen = rb_n - dot(n, cs[k] - cb);
-        float in = point_in_box(cs[k], cb, Rb, hb);
-        inside_any = fmaxf(inside_any, in);
-        ls.add(cs[k], n, pen, in * sat_ok, mu, bs, fi, fs, lk, as, cp, es);
-    }
-    incident_corners(cb, Rb, hb, n, cs);          // B corners toward A
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-        float pen = dot(n, cs[k] - ca) + ra_n;
-        float in = point_in_box(cs[k], ca, Ra, ha);
-        inside_any = fmaxf(inside_any, in);
-        ls.add(cs[k], n, pen, in * sat_ok, mu, bs, fi, fs, lk, as, cp, es);
-    }
-    V3 p_cross = 0.5f * (clamp_into_box(ca, cb, Rb, hb) +
-                         clamp_into_box(cb, ca, Ra, ha));
-    ls.add(p_cross, n, best, sat_ok * (1.0f - inside_any), mu, bs, fi, fs, lk,
-           as, cp, es);
-}
-
-// Sphere (A) vs box (B): 1 lane; the normal pushes the sphere out.
-template <int L>
-KDEV void sphere_box_lane(Lanes<L>& ls, V3 c, float radius, V3 cb,
-                          const M3& Rb, const float hb[3], float mu, float bs,
-                          int lk, float es) {
-    V3 rel = c - cb;
-    float cl[3] = {dot(col(Rb, 0), rel), dot(col(Rb, 1), rel),
-                   dot(col(Rb, 2), rel)};
-    V3 delta = {cl[0] - clampf(cl[0], -hb[0], hb[0]),
-                cl[1] - clampf(cl[1], -hb[1], hb[1]),
-                cl[2] - clampf(cl[2], -hb[2], hb[2])};
-    float dd = dot(delta, delta);
-    float d = sqrtf(fmaxf(dd, 1e-18f));
-    bool outside = dd > 1e-18f;
-    V3 n_local;
-    float pen;
-    if (outside) {
-        n_local = {delta.x / d, delta.y / d, delta.z / d};
-        pen = radius - d;
-    } else {
-        float e0 = hb[0] - fabsf(cl[0]), e1 = hb[1] - fabsf(cl[1]),
-              e2 = hb[2] - fabsf(cl[2]);
-        float emin = fminf(e0, fminf(e1, e2));
-        int k = (e0 <= e1 && e0 <= e2) ? 0 : (e1 <= e2 ? 1 : 2);
-        n_local = {k == 0 ? sgnf(cl[0]) : 0.0f, k == 1 ? sgnf(cl[1]) : 0.0f,
-                   k == 2 ? sgnf(cl[2]) : 0.0f};
-        pen = radius + emin;
-    }
-    V3 n = mat3vec(Rb, n_local);
-    ls.add(c - n * radius, n, pen, pen > -1e-4f ? 1.0f : 0.0f, mu, bs, -1,
-           0.0f, lk, 1.0f, 1.0f, es);
-}
 
 // One environment, n_sub substeps.
 template <bool HAS_BODY, int PLANE_MASK, int GEOM_MASK>
@@ -290,18 +158,26 @@ KDEV void engine_env(const float* __restrict__ st, const float* __restrict__ ctl
         // 5. contact lanes, in the order of pallas_engine.py:573-611
         ls.count = 0;
         if (HAS_BODY) {
-            box_plane_lanes(ls, bp, Ra, half, plane_z, plane_mu, 1.0f, -1,
-                            0.0f, -1, 0.0f, 0.0f, 0.0f);
+            box_plane_lanes(bp, Ra, half, plane_z,
+                            [&](V3 p, V3 nl, float pen, float act) {
+                                ls.add(p, nl, pen, act, plane_mu, 1.0f, -1,
+                                       0.0f, -1, 0.0f, 0.0f, 0.0f);
+                            });
 #pragma unroll
             for (int f = 0; f < 2; ++f)
-                sat_box_box_lanes(ls, bp, Ra, half, fpos[f], Rb7, fhalf,
-                                  finger_mu, 1.0f, f, -1.0f, 6, -1.0f, 0.0f,
-                                  -1.0f);
+                sat_box_box_lanes(bp, Ra, half, fpos[f], Rb7, fhalf,
+                                  [&](V3 p, V3 nl, float pen, float act) {
+                                      ls.add(p, nl, pen, act, finger_mu, 1.0f,
+                                             f, -1.0f, 6, -1.0f, 0.0f, -1.0f);
+                                  });
         }
 #pragma unroll
         for (int f = 0; f < 2; ++f)
-            box_plane_lanes(ls, fpos[f], Rb7, fhalf, plane_z, plane_fric, 0.0f,
-                            f, 1.0f, 6, 1.0f, 1.0f, 1.0f);
+            box_plane_lanes(fpos[f], Rb7, fhalf, plane_z,
+                            [&](V3 p, V3 nl, float pen, float act) {
+                                ls.add(p, nl, pen, act, plane_fric, 0.0f, f,
+                                       1.0f, 6, 1.0f, 1.0f, 1.0f);
+                            });
 #pragma unroll
         for (int sp = 0; sp < 7; ++sp) {
             const bool keep_plane = (PLANE_MASK >> sp) & 1;
@@ -311,15 +187,20 @@ KDEV void engine_env(const float* __restrict__ st, const float* __restrict__ ctl
             float rad = SPH_R[sp];
             float es = li == 6 ? 1.0f : 0.0f;
             V3 c = o[li] + qrotate(r[li], load3(SPH_OFF[sp]));
-            if (keep_plane) {
-                float pen = (plane_z + rad) - c.z;
-                ls.add(V3{c.x, c.y, c.z - rad}, V3{0.0f, 0.0f, 1.0f}, pen,
-                       pen > -1e-4f ? 1.0f : 0.0f, 0.5f * plane_fric, 0.0f, -1,
-                       0.0f, li, 1.0f, 1.0f, es);
-            }
+            if (keep_plane)
+                sphere_plane_lane(c, rad, plane_z,
+                                  [&](V3 p, V3 nl, float pen, float act) {
+                                      ls.add(p, nl, pen, act, 0.5f * plane_fric,
+                                             0.0f, -1, 0.0f, li, 1.0f, 1.0f,
+                                             es);
+                                  });
             if (keep_box)
-                sphere_box_lane(ls, c, rad, bp, Ra, half, 0.5f * body_fric,
-                                -1.0f, li, es);
+                sphere_box_lane(c, rad, bp, Ra, half,
+                                [&](V3 p, V3 nl, float pen, float act) {
+                                    ls.add(p, nl, pen, act, 0.5f * body_fric,
+                                           -1.0f, -1, 0.0f, li, 1.0f, 1.0f,
+                                           es);
+                                });
         }
 
         // 6. solve (fused Jacobi, mass splitting)

@@ -64,3 +64,28 @@ def rejection_uniform(gen, lower, upper, valid_fn, n, n_trials: int = 24):
     valid = valid_fn(cands)
     idx = torch.where(valid.any(1), valid.float().argmax(1), n_trials - 1)
     return cands[torch.arange(n, device=device), idx]
+
+
+def sample_block_positions(gen, n, n_block, lower_xy, upper_xy, avoid_xy, z,
+                           min_dist: float = 0.06, n_trials: int = 24):
+    """Place ``n_block`` objects one after another for n envs at once, each
+    more than ``min_dist`` (xy) from the ones placed before it and from
+    ``avoid_xy`` (the gripper start), by `rejection_uniform`. Returns (n,
+    n_block, 3) positions at height ``z`` (JAX `core.py:89-111`)."""
+    device = gen.device
+    avoid = torch.as_tensor(avoid_xy, dtype=torch.float32, device=device)
+    placed = []
+    for _ in range(n_block):
+        prev = torch.stack(placed, 1) if placed else None
+
+        def valid(xy, prev=prev):                    # (n, T, 2) -> (n, T)
+            ok = torch.linalg.vector_norm(xy - avoid, dim=-1) > min_dist
+            if prev is not None:
+                d = torch.linalg.vector_norm(xy[:, :, None] - prev[:, None],
+                                             dim=-1)
+                ok = ok & (d > min_dist).all(-1)
+            return ok
+        placed.append(rejection_uniform(gen, lower_xy, upper_xy, valid, n,
+                                        n_trials))
+    xy = torch.stack(placed, 1)
+    return torch.cat([xy, xy.new_full((n, n_block, 1), z)], -1)

@@ -30,18 +30,12 @@ F32 = torch.float32
 IK_ITERS_IN_STEP = 8
 
 
-class KukaSingleStepEnv:
-    """Reach / Push / PickAndPlace (`envs/task_envs/kuka_single_step_envs.py`)
-    for a batch of environments on ``device``."""
+class KukaEnvBase:
+    """What every family shares (JAX `single_step.py:26-205`): workspace
+    bounds, rest pose, action decoding, the arm targets (kernel K1) and the
+    reset state, for a batch of environments on ``device``."""
 
     def __init__(self, cfg: EnvConfig, device: torch.device):
-        if cfg.family != 'single_step':
-            raise NotImplementedError('family %r comes with a later slice of '
-                                      'the port' % cfg.family)
-        if cfg.task == 'slide':
-            raise NotImplementedError('slide (the cylinder branch of the '
-                                      'control-step kernel) comes with a '
-                                      'later slice of the port')
         if cfg.gripper != 'parallel_jaw':
             raise NotImplementedError('the Robotiq-85 gripper comes with a '
                                       'later slice of the port')
@@ -77,12 +71,7 @@ class KukaSingleStepEnv:
                         q_init=torch.tensor(KM.KUKA_REST_POSE, dtype=F32))
         self.rest_pose = rest.numpy()
         self.tip_rest = fk.tip_pose(rest)[0].numpy()
-
-        self.spec = S.single_step_scene(cfg.has_obj, cfg.table_type)
-        self.nb = max(self.spec.n_bodies, 1)
-        self.scene = D.scene_consts(self.spec, ik_workspace=self.ik_workspace)
         self.ik = CudaIK(num_iters=IK_ITERS_IN_STEP)
-        self.engine = CudaEngine(self.scene)
 
         def t(x):
             return torch.as_tensor(np.asarray(x, np.float32), device=device)
@@ -91,48 +80,21 @@ class KukaSingleStepEnv:
         self._tip_init = t(tip_init)
         self._ee_lower, self._ee_upper = t(self.ee_lower), t(self.ee_upper)
 
-    # ------------------------------------------------------------------ reset
-    def reset(self, n: int, gen: torch.Generator):
-        """n fresh episodes drawn from ``gen``: (EnvState, obs)."""
-        cfg = self.cfg
-        tip_init = self._tip_init
-        if cfg.has_obj:
-            # object >= 0.1 m (xy) from the gripper start
-            obj_xy = core.rejection_uniform(
-                gen, self.object_lower[:2], self.object_upper[:2],
-                lambda xy: torch.linalg.vector_norm(
-                    xy - tip_init[:2], dim=-1) > 0.1, n)
-            obj_xyz = torch.cat([obj_xy, obj_xy.new_full((n, 1),
-                                                          self.block_z)], -1)
-            body_pos = obj_xyz[:, None]
-            center = obj_xyz
-        else:
-            body_pos = torch.zeros((n, self.nb, 3), dtype=F32,
-                                   device=self.device)
-            center = tip_init.expand(n, 3)
-        # goal >= 0.1 m from the object (or the gripper start for reach)
-        goal = core.rejection_uniform(
-            gen, self.target_lower, self.target_upper,
-            lambda g: torch.linalg.vector_norm(
-                g - center[:, None], dim=-1) > 0.1, n)
-        if not cfg.target_in_the_air:
-            goal[:, 2] = self.block_z
-        elif cfg.grasping:
-            # half of the targets lie on the table
-            on_table = torch.rand((n,), generator=gen, device=self.device) >= 0.5
-            goal[:, 2] = torch.where(on_table, self.block_z, goal[:, 2])
-        # fingers reset to the joint limit
-        phys = D.init_state(n, self.nb, q=self._rest, body_pos=body_pos,
+    def _reset_phys(self, n, body_pos):
+        """Resting physics for n envs: the rest pose, the fingers at the
+        joint limit (closed, as the reference resets them), the bodies
+        upright at ``body_pos`` (n, NB, 3)."""
+        return D.init_state(n, self.nb, q=self._rest, body_pos=body_pos,
                             fq=self.gripper_abs_joint_limit,
                             device=self.device)
-        state = self._base_env_state(phys, goal)
-        return state, self._get_obs(state)
 
-    def _base_env_state(self, phys, desired_goal):
+    def _base_env_state(self, phys, desired_goal, nc: int = 1):
         n, nb = phys.q.shape[0], self.nb
         gd = desired_goal.shape[-1]
         kw = dict(device=self.device)
         i32 = torch.int32
+        prob = torch.zeros((n, max(nc, 1)), dtype=F32, **kw)
+        prob[:, 0] = 1.0
         return core.EnvState(
             phys=phys,
             steps=torch.zeros((n,), dtype=i32, **kw),
@@ -147,8 +109,8 @@ class KukaSingleStepEnv:
             block_order=torch.arange(nb, dtype=i32, **kw).expand(n, nb).clone(),
             curriculum_level=torch.zeros((n,), dtype=i32, **kw),
             ind_block_to_move=torch.zeros((n, nb), dtype=torch.bool, **kw),
-            curriculum_prob=torch.ones((n, 1), dtype=F32, **kw),
-            goals_generated=torch.zeros((n, 1), dtype=F32, **kw),
+            curriculum_prob=prob,
+            goals_generated=torch.zeros((n, max(nc, 1)), dtype=F32, **kw),
             curriculum_update=torch.zeros((n,), dtype=torch.bool, **kw),
             curriculum_goal_step=torch.full((n,), 50, dtype=i32, **kw),
             door_hold_open=torch.zeros((n,), dtype=torch.bool, **kw),
@@ -186,6 +148,59 @@ class KukaSingleStepEnv:
         return self.ik.solve(state.ee_target, q_init=state.phys.q,
                              rest_pose=self._rest.expand(n, 7))
 
+
+class KukaSingleStepEnv(KukaEnvBase):
+    """Reach / Push / PickAndPlace (`envs/task_envs/kuka_single_step_envs.py`)
+    for a batch of environments on ``device``."""
+
+    def __init__(self, cfg: EnvConfig, device: torch.device):
+        if cfg.family != 'single_step':
+            raise NotImplementedError('family %r comes with a later slice of '
+                                      'the port' % cfg.family)
+        if cfg.task == 'slide':
+            raise NotImplementedError('slide (the cylinder branch of the '
+                                      'control-step kernel) comes with a '
+                                      'later slice of the port')
+        super().__init__(cfg, device)
+        self.spec = S.single_step_scene(cfg.has_obj, cfg.table_type)
+        self.nb = max(self.spec.n_bodies, 1)
+        self.scene = D.scene_consts(self.spec, ik_workspace=self.ik_workspace)
+        self.engine = CudaEngine(self.scene)
+
+    # ------------------------------------------------------------------ reset
+    def reset(self, n: int, gen: torch.Generator):
+        """n fresh episodes drawn from ``gen``: (EnvState, obs)."""
+        cfg = self.cfg
+        tip_init = self._tip_init
+        if cfg.has_obj:
+            # object >= 0.1 m (xy) from the gripper start
+            obj_xy = core.rejection_uniform(
+                gen, self.object_lower[:2], self.object_upper[:2],
+                lambda xy: torch.linalg.vector_norm(
+                    xy - tip_init[:2], dim=-1) > 0.1, n)
+            obj_xyz = torch.cat([obj_xy, obj_xy.new_full((n, 1),
+                                                          self.block_z)], -1)
+            body_pos = obj_xyz[:, None]
+            center = obj_xyz
+        else:
+            body_pos = torch.zeros((n, self.nb, 3), dtype=F32,
+                                   device=self.device)
+            center = tip_init.expand(n, 3)
+        # goal >= 0.1 m from the object (or the gripper start for reach)
+        goal = core.rejection_uniform(
+            gen, self.target_lower, self.target_upper,
+            lambda g: torch.linalg.vector_norm(
+                g - center[:, None], dim=-1) > 0.1, n)
+        if not cfg.target_in_the_air:
+            goal[:, 2] = self.block_z
+        elif cfg.grasping:
+            # half of the targets lie on the table
+            on_table = torch.rand((n,), generator=gen, device=self.device) >= 0.5
+            goal[:, 2] = torch.where(on_table, self.block_z, goal[:, 2])
+        state = self._base_env_state(self._reset_phys(n, body_pos), goal)
+        return state, self._get_obs(state)
+
+    # ------------------------------------------------------------------- step
     def step_finish(self, state: core.EnvState):
         cfg = self.cfg
         obs = self._get_obs(state)

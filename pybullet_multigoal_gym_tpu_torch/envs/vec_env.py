@@ -2,8 +2,9 @@
 device, with TimeLimit and auto-reset.
 
 Counterpart of `pybullet_multigoal_gym_tpu/envs/vec_env.py`. A step runs
-decode -> IK (kernel K1) -> control step (kernel K2) -> observation and
-reward -> TimeLimit. ``done`` comes only from the TimeLimit, as in the
+decode -> IK (kernel K1) -> control step (kernel K2 for the single-step
+family, K3 for the multi-step family) -> observation and reward ->
+TimeLimit. ``done`` comes only from the TimeLimit, as in the
 reference, where ``env.step`` always returns ``done=False`` and gym's
 ``TimeLimit`` wrapper truncates, so all episodes of a batch run in lockstep:
 the reset branch is decided from the state's host step count and never
@@ -13,10 +14,21 @@ waits for the device.
 import torch
 
 from pybullet_multigoal_gym_tpu_torch.config import EnvConfig, env_id
+from pybullet_multigoal_gym_tpu_torch.envs.multi_step import KukaMultiBlockEnv
 from pybullet_multigoal_gym_tpu_torch.envs.single_step import KukaSingleStepEnv
 from pybullet_multigoal_gym_tpu_torch.ops import dynamics as D
 from pybullet_multigoal_gym_tpu_torch.utils import spaces
 from pybullet_multigoal_gym_tpu_torch.utils.tensors import resolve_device
+
+
+def _make_core(cfg: EnvConfig, device):
+    """The family's batched env (JAX `vec_env.py:27-39`)."""
+    if cfg.family == 'single_step':
+        return KukaSingleStepEnv(cfg, device)
+    if cfg.family == 'multi_step':
+        return KukaMultiBlockEnv(cfg, device)
+    raise NotImplementedError('family %r comes with a later slice of the '
+                              'port' % cfg.family)
 
 
 class VecMGEnv:
@@ -43,7 +55,7 @@ class VecMGEnv:
         self.num_envs = num_envs
         self.auto_reset = auto_reset
         self.device = resolve_device(device)
-        self.core = KukaSingleStepEnv(cfg, self.device)
+        self.core = _make_core(cfg, self.device)
         self.env_id = env_id(cfg)
         self.max_episode_steps = cfg.max_episode_steps
         self.generator = torch.Generator(device=self.device)
@@ -55,27 +67,38 @@ class VecMGEnv:
             self.generator.manual_seed(seed)
         return self.core.reset(self.num_envs, self.generator)
 
+    def _auto_reset(self, state):
+        """Fresh episodes after the TimeLimit; the multi-step family keeps
+        its curriculum bookkeeping across them (JAX `vec_env.py:219-229`)."""
+        n = state.phys.q.shape[0]
+        if self.cfg.family == 'multi_step':
+            return self.core.reset(n, self.generator, curr=(
+                state.curriculum_prob, state.goals_generated,
+                state.curriculum_update))
+        return self.core.reset(n, self.generator)
+
     def step(self, state, action):
         """One action per env, (N, action_dim): returns (state, obs, reward,
         done, info). Where the TimeLimit ends the episodes, the returned obs,
         reward and info are those of the last step and the returned state
         is a fresh reset."""
         core = self.core
-        n = state.phys.q.shape[0]
         state, f_target = core.step_decode_pre(state, action)
         q_target = core.arm_targets(state)
-        zeros = state.phys.door_q
+        # the chest door's hold-open motor (zero without a chest)
+        door_target = torch.full_like(
+            state.phys.door_q,
+            self.cfg.chest_door_opened_state if self.cfg.has_chest else 0.0)
         phys = core.engine.control_step(state.phys, D.Controls(
             q_target=q_target, f_target=f_target,
-            door_motor_on=torch.zeros_like(zeros, dtype=torch.bool),
-            door_target=torch.zeros_like(zeros)))
+            door_motor_on=state.door_hold_open, door_target=door_target))
         state = state._replace(phys=phys, steps=state.steps + 1,
                                host_steps=state.host_steps + 1)
         state, obs, reward, achieved = core.step_finish(state)
         done = state.steps >= self.max_episode_steps
         info = {'goal_achieved': achieved}
         if self.auto_reset and state.host_steps >= self.max_episode_steps:
-            state, _ = core.reset(n, self.generator)
+            state, _ = self._auto_reset(state)
         return state, obs, reward, done, info
 
     @property

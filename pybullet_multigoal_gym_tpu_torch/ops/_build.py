@@ -34,6 +34,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     'ik': ('ik_launch', [_P, _P, _I, _I, _F, _F, _F, _P]),
     'engine': ('engine_launch', [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P]),
+    'multibody': ('multibody_launch',
+                  [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P]),
 }
 
 _LOADED = {}    # name -> Kernel, one load per process

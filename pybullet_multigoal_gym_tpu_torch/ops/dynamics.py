@@ -3,9 +3,11 @@
 Counterpart of the first part of `pybullet_multigoal_gym_tpu/ops/dynamics.py`
 (constants, `PhysicsState`, `Controls`, `Engine.__init__`'s spec constants
 and `Engine.init_state`), batched over a leading env axis. The physics itself
-is `ops/engine_plain.py` (plain PyTorch) and `ops/cuda_engine.py` (the
-kernel). One control step = ``n_substeps`` velocity-level substeps of
-``DT_SUB`` seconds (5 stepSimulation calls x 20 substeps = 100).
+is `ops/engine_plain.py` / `ops/multibody_plain.py` (plain PyTorch) and
+`ops/cuda_engine.py` / `ops/cuda_multibody.py` (the kernels) for scenes with
+at most one free body / several free boxes. One control step =
+``n_substeps`` velocity-level substeps of ``DT_SUB`` seconds (5
+stepSimulation calls x 20 substeps = 100).
 """
 
 import dataclasses
@@ -109,9 +111,100 @@ def scene_consts(spec: S.SceneSpec, ik_workspace: bool = True) -> SceneConsts:
         finger_mu=fric * 1.0, plane_mask=plane_mask, geom_mask=geom_mask)
 
 
+@dataclasses.dataclass(frozen=True)
+class MultiBodyConsts:
+    """Everything static that the control step of a scene of free
+    single-box bodies needs (`pallas_multibody.py:262-299`), per body in
+    body order, in float32 where the kernels read it."""
+    nb: int
+    half: Tuple[Tuple[float, float, float], ...]          # box half extents
+    inv_mass: Tuple[float, ...]
+    inv_inertia: Tuple[Tuple[float, float, float], ...]   # body-frame diagonal
+    body_friction: Tuple[float, ...]
+    plane_z: float
+    plane_friction: float
+    # arm-sphere lanes kept by the workspace envelope (lane_cull), bit sp:
+    # against the plane, and against every block (all blocks are alike)
+    plane_mask: int
+    geom_mask: int
+    solver_iters: int = 8
+    erp: float = 0.2
+    slop: float = 5e-4
+
+    # lane frictions (pallas_multibody.py:403-517)
+    def mu_plane(self, b):
+        return self.body_friction[b] * self.plane_friction
+
+    def mu_finger(self, b):
+        return self.body_friction[b] * 1.0
+
+    def mu_sphere(self, b):
+        return 0.5 * self.body_friction[b]
+
+    def mu_pair(self, b, b2):
+        return self.body_friction[b] * self.body_friction[b2]
+
+    @property
+    def mu_finger_plane(self):
+        return 1.0 * self.plane_friction
+
+    @property
+    def mu_sphere_plane(self):
+        return 0.5 * self.plane_friction
+
+
+def multibody_consts(spec: S.SceneSpec, ik_workspace: bool = True
+                     ) -> MultiBodyConsts:
+    """Static constants of a multi-body scene of free boxes of one size,
+    one geom per body at the body origin, with the parallel-jaw gripper (the
+    multi-step family without the chest). ``ik_workspace=False`` (joint
+    control) keeps every arm-sphere lane. Raises `NotImplementedError` for
+    what later slices of the port bring: static boxes, the chest door,
+    pinned bodies, several geoms per body, cylinders and boxes of several
+    sizes."""
+    later = 'come with a later slice of the port'
+    if spec.ns_static or spec.door is not None:
+        raise NotImplementedError('the chest (static walls and the door) '
+                                  + later)
+    a = spec.np_arrays()
+    if (a['body_mass'] <= 0).any():
+        raise NotImplementedError('pinned bodies ' + later)
+    if len(a['geom_body']) != spec.n_bodies or \
+            (a['geom_body'] != np.arange(spec.n_bodies)).any() or \
+            (a['geom_pos'] != 0).any():
+        raise NotImplementedError('bodies of several geoms ' + later)
+    if (a['geom_type'] != S.BOX).any():
+        raise NotImplementedError('cylinder bodies ' + later)
+    if (a['geom_half'] != a['geom_half'][0]).any():
+        raise NotImplementedError('boxes of several sizes ' + later)
+    reach = LC.arm_lane_mask(spec, ik_workspace)
+    masks = {sum(1 << sp for sp in range(N_ARM_SPHERES) if reach['geom'][sp][g])
+             for g in range(spec.n_bodies)}
+    if len(masks) != 1:
+        raise NotImplementedError('bodies that the arm spheres reach '
+                                  'differently ' + later)
+    half, inv_inertia = [], []
+    for b in range(spec.n_bodies):
+        h = tuple(float(x) for x in a['geom_half'][b])
+        inertia = S.body_inertia_diag(float(a['body_mass'][b]), h, S.BOX)
+        half.append(h)
+        inv_inertia.append(tuple(float(x) for x in
+                                 (1.0 / inertia).astype(np.float32)))
+    return MultiBodyConsts(
+        nb=spec.n_bodies, half=tuple(half),
+        inv_mass=tuple(1.0 / float(m) for m in a['body_mass']),
+        inv_inertia=tuple(inv_inertia),
+        body_friction=tuple(float(f) for f in a['body_friction']),
+        plane_z=spec.plane_z, plane_friction=spec.plane_friction,
+        plane_mask=sum(1 << sp for sp in range(N_ARM_SPHERES)
+                       if reach['plane'][sp]),
+        geom_mask=masks.pop())
+
+
 def init_state(n, nb=1, q=None, body_pos=None, fq=KM.FINGER_LIMIT,
                device=None) -> PhysicsState:
-    """A batch of n resting states, bodies upright (`Engine.init_state`)."""
+    """A batch of n resting states with ``nb`` bodies upright
+    (`Engine.init_state`); ``body_pos`` is (n, nb, 3)."""
     z = torch.zeros((), dtype=torch.float32, device=device)
     if q is None:
         q = const(KM.KUKA_REST_POSE, z).expand(n, 7)

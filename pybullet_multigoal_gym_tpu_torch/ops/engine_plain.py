@@ -11,7 +11,9 @@ per-body, per-finger and per-arm sums depend on them.
 The CPU path and the tests run this module; on the card `ops/cuda_engine.py`
 launches `csrc/engine.cu` instead, and the chip smoke test holds the two
 against each other. Scope: the no-object scene (reach) and one free box
-(push, pick_and_place) with the parallel-jaw gripper.
+(push, pick_and_place) with the parallel-jaw gripper. The lane builders
+(and the edge-edge lane, which only K3 uses) also serve K3's plain version,
+`ops/multibody_plain.py`.
 """
 
 from typing import NamedTuple
@@ -154,26 +156,29 @@ def _proj(R, h, L):
     return sum(vdot(_col(R, i), L).abs() * h[i] for i in range(3))
 
 
+def _proj_rows(Rt, h, L):
+    """sum_i h_i |(R col_i) . L| for directions L (N, k, 3); ``Rt`` is R
+    transposed (N, 3, 3), its rows R's columns."""
+    d = (L[:, :, None, :] * Rt[:, None]).sum(-1)            # (N, k, 3)
+    return d[..., 0].abs() * h[0] + d[..., 1].abs() * h[1] \
+        + d[..., 2].abs() * h[2]
+
+
 def sat_face_normal(ca, Ra, ha, cb, Rb, hb):
-    """Minimum-penetration face axis over the 6 face axes of two OBBs.
+    """Minimum-penetration face axis over the 6 face axes of two OBBs (all
+    6 at once; the first minimum wins, as in the Pallas kernel's loop).
     Returns (n pointing B->A, sat_ok, ra_n, rb_n, min_overlap)."""
-    axes = [_col(Ra, k) for k in range(3)] + [_col(Rb, k) for k in range(3)]
-    t = ca - cb
-    best_overlap = best_axis = sat_ok = None
-    for L in axes:
-        tl = vdot(t, L)
-        overlap = _proj(Ra, ha, L) + _proj(Rb, hb, L) - tl.abs()
-        ok = (overlap > -1e-4).float()
-        sat_ok = ok if sat_ok is None else sat_ok * ok
-        axis = L * _sign(tl)[:, None]
-        if best_overlap is None:
-            best_overlap, best_axis = overlap, axis
-        else:
-            better = overlap < best_overlap
-            best_axis = torch.where(better[:, None], axis, best_axis)
-            best_overlap = torch.where(better, overlap, best_overlap)
-    n = best_axis
-    return n, sat_ok, _proj(Ra, ha, n), _proj(Rb, hb, n), best_overlap
+    RaT, RbT = Ra.transpose(-1, -2), Rb.transpose(-1, -2)
+    axes = torch.cat([RaT, RbT], 1)                          # (N, 6, 3)
+    tl = vdot((ca - cb)[:, None], axes)
+    overlap = (_proj_rows(RaT, ha, axes) + _proj_rows(RbT, hb, axes)
+               - tl.abs())
+    sat_ok = (overlap > -1e-4).float().prod(1)
+    best = overlap.argmin(1)
+    rows = torch.arange(best.shape[0], device=best.device)
+    n = axes[rows, best] * _sign(tl[rows, best])[:, None]
+    return (n, sat_ok, _proj(Ra, ha, n), _proj(Rb, hb, n),
+            overlap[rows, best])
 
 
 def point_in_box(p, c, R, h):
@@ -196,28 +201,84 @@ def clamp_into_box(p, c, R, h):
 
 def sat_box_box_lanes(ca, Ra, ha, cb, Rb, hb, mu, **meta):
     """9-lane SAT box-box manifold: 4 incident-face corners of A in B, 4 of
-    B in A, 1 cross-piercing fallback."""
+    B in A, 1 cross-piercing fallback (the 4 corners of a side at once)."""
     n, sat_ok, ra_n, rb_n, min_overlap = sat_face_normal(ca, Ra, ha,
                                                          cb, Rb, hb)
-    lanes = []
-    inside_any = None
-    for p in incident_corners(ca, Ra, ha, -n):      # A corners toward B
-        pen = rb_n - vdot(n, p - cb)
-        inside = point_in_box(p, cb, Rb, hb)
-        inside_any = inside if inside_any is None \
-            else torch.maximum(inside_any, inside)
-        lanes.append(_mk_lane(p, n, pen, inside * sat_ok, mu, **meta))
-    for p in incident_corners(cb, Rb, hb, n):       # B corners toward A
-        pen = vdot(n, p - ca) + ra_n
-        inside = point_in_box(p, ca, Ra, ha)
-        inside_any = torch.maximum(inside_any, inside)
-        lanes.append(_mk_lane(p, n, pen, inside * sat_ok, mu, **meta))
+    n4 = n[:, None]
+    # A corners toward B, then B corners toward A
+    pa = torch.stack(incident_corners(ca, Ra, ha, -n), 1)    # (N, 4, 3)
+    pb = torch.stack(incident_corners(cb, Rb, hb, n), 1)
+    pen_a = rb_n[:, None] - vdot(n4, pa - cb[:, None])
+    pen_b = vdot(n4, pb - ca[:, None]) + ra_n[:, None]
+    in_a = point_in_box(pa, cb[:, None], Rb[:, None], hb)
+    in_b = point_in_box(pb, ca[:, None], Ra[:, None], ha)
+    inside_any = torch.cat([in_a, in_b], 1).amax(1)
+    lanes = [_mk_lane(p[:, k], n, pen[:, k], inside[:, k] * sat_ok, mu,
+                      **meta)
+             for p, pen, inside in ((pa, pen_a, in_a), (pb, pen_b, in_b))
+             for k in range(4)]
     # cross-piercing fallback: SAT overlap but no corner inside either box
     p_cross = 0.5 * (clamp_into_box(ca, cb, Rb, hb)
                      + clamp_into_box(cb, ca, Ra, ha))
     lanes.append(_mk_lane(p_cross, n, min_overlap,
                           sat_ok * (1.0 - inside_any), mu, **meta))
     return lanes
+
+
+def edge_lane(ca, Ra, ha, cb, Rb, hb, mu, **meta):
+    """Edge-edge candidate of box A vs box B (`pallas_engine.py:
+    edge_lane_tiles`, `contact.py:box_box_edge`): 1 lane, active when an
+    edge-cross axis is the 15-axis SAT minimum by more than 20 % + 1 mm of
+    the best face axis. The 9 edge pairs (i, j) are computed at once, in
+    the Pallas kernel's order of operations; the first minimum wins."""
+    t = ca - cb
+    min_f = sat_ok = None
+    for L in [_col(Ra, k) for k in range(3)] + [_col(Rb, k) for k in range(3)]:
+        ov = _proj(Ra, ha, L) + _proj(Rb, hb, L) - vdot(t, L).abs()
+        ok = (ov > -1e-4).float()
+        sat_ok = ok if sat_ok is None else sat_ok * ok
+        min_f = ov if min_f is None else torch.minimum(min_f, ov)
+    # pair p = 3 i + j: edge axis i of A, j of B
+    ii, jj = [p // 3 for p in range(9)], [p % 3 for p in range(9)]
+    ea, eb = Ra[..., :, ii].transpose(-1, -2), Rb[..., :, jj].transpose(-1, -2)
+    cA = [_col(Ra, k)[:, None] for k in range(3)]           # (N, 1, 3)
+    cB = [_col(Rb, k)[:, None] for k in range(3)]
+    t9 = t[:, None]
+    L = vcross(ea, eb)                                      # (N, 9, 3)
+    Ln = torch.sqrt(vdot(L, L).clamp_min(1e-18))
+    Lu = L / Ln[..., None]
+    ov = (sum(vdot(cA[k], Lu).abs() * ha[k] for k in range(3))
+          + sum(vdot(cB[k], Lu).abs() * hb[k] for k in range(3))
+          - vdot(t9, Lu).abs())
+    ov = torch.where(Ln > 1e-6, ov, 1e9)        # parallel edges: no axis
+    sat_ok = sat_ok * (ov > -1e-4).float().prod(1)
+    n9 = Lu * _sign(vdot(t9, Lu))[..., None]
+    # the support edges: A's edge along ea nearest B, B's along eb
+    pa, pb = ca[:, None], cb[:, None]
+    for k in range(3):
+        offA = (_sign(vdot(-n9, cA[k])) * ha[k])[..., None] * cA[k]
+        offB = (_sign(vdot(n9, cB[k])) * hb[k])[..., None] * cB[k]
+        pa = pa + torch.where(const([i != k for i in ii], t)[:, None] > 0,
+                              offA, 0.0)
+        pb = pb + torch.where(const([j != k for j in jj], t)[:, None] > 0,
+                              offB, 0.0)
+    # closest points of the two edge lines, clamped to the edges
+    r = pa - pb
+    b_, c_, d_ = vdot(ea, eb), vdot(ea, r), vdot(eb, r)
+    den = (1.0 - b_ * b_).clamp_min(1e-9)
+    s_ = (b_ * d_ - c_) / den
+    u_ = d_ + b_ * s_
+    s_ = torch.minimum(torch.maximum(s_, -const([ha[i] for i in ii], t)),
+                       const([ha[i] for i in ii], t))
+    u_ = torch.minimum(torch.maximum(u_, -const([hb[j] for j in jj], t)),
+                       const([hb[j] for j in jj], t))
+    pt9 = 0.5 * (pa + s_[..., None] * ea + pb + u_[..., None] * eb)
+    best = ov.argmin(1)                          # the first minimum
+    rows = torch.arange(ov.shape[0], device=ov.device)
+    min_e, n, pt = ov[rows, best], n9[rows, best], pt9[rows, best]
+    edge_wins = (min_e < torch.minimum(min_f * 0.8, min_f) - 1e-3).float()
+    active = sat_ok * edge_wins * (min_e > -1e-4).float()
+    return [_mk_lane(pt, n, min_e, active, mu, **meta)]
 
 
 def sphere_plane_lane(c, radius, plane_z, mu, **meta):

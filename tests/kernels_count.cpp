@@ -96,6 +96,7 @@ inline Flop atan2f(Flop a, Flop b) {
 #define float Flop
 #include "../pybullet_multigoal_gym_tpu_torch/csrc/engine.cu"
 #include "../pybullet_multigoal_gym_tpu_torch/csrc/ik.cu"
+#include "../pybullet_multigoal_gym_tpu_torch/csrc/multibody.cu"
 #undef float
 
 namespace {
@@ -167,5 +168,38 @@ extern "C" unsigned long long engine_count(int has_body, int plane_mask,
     }
     ENGINE_SCENES(ENGINE_CASE)
 #undef ENGINE_CASE
+    return ~0ULL;
+}
+
+// The K3 scenes counted here: those whose bound chip_smoke.py reports
+// (block_rearrange with 2 blocks, block_stack with 5, end-effector control);
+// each instance of the counting float takes seconds to compile.
+#define MULTIBODY_COUNTED(X) X(2, 0x40, 0x60) X(5, 0x40, 0x78)
+
+// Same inputs and outputs as tests/kernels_host.cpp's multibody_host;
+// returns the operation count over all n environments, or ~0 for a scene
+// this build does not count.
+extern "C" unsigned long long multibody_count(int nb, int plane_mask,
+                                              int geom_mask, const float* st,
+                                              const float* ctl,
+                                              const float* prm, float* out,
+                                              int n_prm, int n, int n_sub,
+                                              int iters, int threads) {
+    const long rows = 18 + 13L * nb + 5;
+    std::vector<Flop> fst = data(st, rows * n),
+                      fctl = data(ctl, (long)kin::mb::N_CTRL * n),
+                      fprm = data(prm, n_prm), fout(rows * n);
+#define MULTIBODY_CASE(NB, PM, GM)                                          \
+    if (nb == NB && plane_mask == PM && geom_mask == GM) {                  \
+        unsigned long long ops = count_envs(n, threads, [&](int i) {        \
+            kin::mb::multibody_env<NB, PM, GM>(fst.data(), fctl.data(),     \
+                                               fprm.data(), fout.data(), n, \
+                                               i, n_sub, iters);            \
+        });                                                                 \
+        store(fout, out);                                                   \
+        return ops;                                                         \
+    }
+    MULTIBODY_COUNTED(MULTIBODY_CASE)
+#undef MULTIBODY_CASE
     return ~0ULL;
 }

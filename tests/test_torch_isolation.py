@@ -1,6 +1,7 @@
-"""The port stands alone: importing it and stepping an env loads neither JAX
-nor any module of the JAX package, and its entry point asks for CUDA unless
-the caller passes ``device='cpu'``."""
+"""The port stands alone: importing it and stepping an env of each family
+(reach, and block_rearrange on the multi-body engine) loads neither JAX nor
+any module of the JAX package, and its entry point asks for CUDA unless the
+caller passes ``device='cpu'``."""
 
 import ast
 import json
@@ -20,16 +21,24 @@ import json, sys, torch
 torch.set_num_threads(1)
 import pybullet_multigoal_gym_tpu_torch as port
 from pybullet_multigoal_gym_tpu_torch import interop
+from pybullet_multigoal_gym_tpu_torch.utils import demonstrator
 env = port.make_vec_env(num_envs=2, task='reach', device='cpu')
 state, obs = env.reset()
 state, obs, reward, done, info = env.step(
     state, torch.zeros((2, env.cfg.action_dim)))
 interop.state_to_numpy(state)
+multi = port.make_vec_env(num_envs=2, task='block_rearrange', num_block=1,
+                          device='cpu')
+mstate, mobs = multi.reset()
+mstate, mobs, _, _, _ = multi.step(mstate, torch.zeros((2, 3)))
+interop.state_to_numpy(mstate)
+demonstrator.StepDemonstrator(demonstrator.default_demonstrations(2))
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.')
              or m == 'pybullet_multigoal_gym_tpu'
              or m.startswith('pybullet_multigoal_gym_tpu.'))
-print(json.dumps({'bad': bad, 'obs': list(obs['observation'].shape)}))
+print(json.dumps({'bad': bad, 'obs': list(obs['observation'].shape),
+                  'multi_obs': list(mobs['observation'].shape)}))
 '''
 
 
@@ -46,7 +55,8 @@ def _imported_modules(path):
 
 @pytest.mark.parametrize('source', ['pybullet_multigoal_gym_tpu_torch',
                                     'chip_smoke.py', 'tests/torch_common.py',
-                                    'tests/test_torch_kernels.py'])
+                                    'tests/test_torch_kernels.py',
+                                    'tests/kernel_ops.py'])
 def test_sources_name_no_jax(source):
     """No import statement anywhere in the port, the chip smoke test or the
     card tests and their helpers names JAX or the JAX package, including
@@ -67,7 +77,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res == {'bad': [], 'obs': [2, 3]}
+    assert res == {'bad': [], 'obs': [2, 3], 'multi_obs': [2, 24]}
 
 
 def test_default_device_is_cuda():

@@ -14,21 +14,21 @@ an axis choice is a tie: after 2 substeps, within 1e-4 rad for K1 and 2e-3
 for K2 (the JAX package's engine bound; EE force 2e-3 / dt).
 
 Tolerances on the card, at the main path's 4096 envs: K1 1e-4 rad (the
-kernel sums in another order than the plain version). K2 on the main path's
-own inputs: every env within 1e-4 after 2 substeps and within 2e-3 after 100,
-the bound the JAX package holds its Pallas engine to against its XLA engine.
-K2 on the stress states, whose impulses run to thousands of newtons: there
-the plain version's own answer moves by far more than rounding in some envs
-when rounding moves by one ulp (a contact test or a joint stop flips). Each
-env agrees within the tolerance (1e-4 after 2 substeps, 2e-3 after 100) or
-within twice its own spread over 8 plain runs with 1-ulp noise in every
-substep (tests/torch_common.py:plain_run), whichever is larger.
+kernel sums in another order than the plain version). K2 and K3 on the main
+path's own inputs: every env within 1e-4 after 2 substeps and within 2e-3
+after 100, the bound the JAX package holds its Pallas engines to against its
+XLA engine. K2 and K3 on the stress states, whose impulses run to thousands
+of newtons: there the plain version's own answer moves by far more than
+rounding in some envs when rounding moves by one ulp (a contact test or a
+joint stop flips). Each env agrees within the tolerance (1e-4 after 2
+substeps, 2e-3 after 100) or within twice its own spread over 8 plain runs
+with 1-ulp noise in every substep (tests/torch_common.py:plain_run),
+whichever is larger.
 """
 
 import ctypes
 import re
 import shutil
-import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -37,23 +37,31 @@ import torch
 
 from pybullet_multigoal_gym_tpu_torch import make_vec_env
 from pybullet_multigoal_gym_tpu_torch.model import kuka_model as KM
-from pybullet_multigoal_gym_tpu_torch.ops import _build, cuda_engine, cuda_ik
+from pybullet_multigoal_gym_tpu_torch.ops import (_build, cuda_engine, cuda_ik,
+                                                 cuda_multibody)
 from pybullet_multigoal_gym_tpu_torch.ops import dynamics as D
 from pybullet_multigoal_gym_tpu_torch.ops import engine_plain as EP
 from pybullet_multigoal_gym_tpu_torch.ops import ik
+from pybullet_multigoal_gym_tpu_torch.ops import multibody_plain as MP
 from pybullet_multigoal_gym_tpu_torch.ops import scene as S
 from pybullet_multigoal_gym_tpu_torch.ops.cuda_engine import CudaEngine
 from pybullet_multigoal_gym_tpu_torch.ops.cuda_ik import CudaIK
+from pybullet_multigoal_gym_tpu_torch.ops.cuda_multibody import (
+    CudaMultiBodyEngine)
 from tests import kernel_ops
 from tests.torch_common import (ARM_FIELDS, BODY_FIELDS, cuda, inputs,  # noqa: F401
-                                n, plain_run, t, torch_controls,
-                                torch_state, workspace_targets)
+                                multi_inputs, n, noise_bound, plain_run, t,
+                                torch_controls, torch_state,
+                                workspace_targets)
 
 torch.set_num_threads(1)
 
 N = 4096
 N_HOST = 256
 HOST_SRC = Path(__file__).resolve().parent / 'kernels_host.cpp'
+# unoptimised: 2 s to build instead of 7-12 s, and the same float arithmetic
+# (no FMA contraction; SSE floats round as the card's do)
+HOST_FLAGS = ['-std=c++17', '-O0', '-ffp-contract=off', '-shared', '-fPIC']
 
 
 def env_errors(out, ref, fields):
@@ -65,21 +73,18 @@ def env_errors(out, ref, fields):
 
 # ------------------------------------------------------ host build, CPU
 @pytest.fixture(scope='module')
-def host_kernels(tmp_path_factory):
+def host_kernels():
     """The kernel sources built for the host (no FMA contraction, as on the
     card); skips where there is no C++ compiler."""
-    cxx = shutil.which('g++') or shutil.which('c++')
-    if cxx is None:
+    if not (shutil.which('g++') or shutil.which('c++')):
         pytest.skip('needs a host C++ compiler')
-    lib = tmp_path_factory.mktemp('kernels_host') / 'libkernels_host.so'
-    subprocess.run([cxx, '-std=c++17', '-O1', '-ffp-contract=off', '-shared',
-                    '-fPIC', '-o', str(lib), str(HOST_SRC)], check=True,
-                   capture_output=True, timeout=300)
-    so = ctypes.CDLL(str(lib))
+    so = ctypes.CDLL(str(kernel_ops.host_library(HOST_SRC, HOST_FLAGS)))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     so.ik_host.argtypes = [P, P, I, I, F, F, F]
     so.engine_host.argtypes = [I, I, I, P, P, P, P, I, I, I]
-    so.ik_host.restype = so.engine_host.restype = ctypes.c_int
+    so.multibody_host.argtypes = [I, I, I, P, P, P, P, I, I, I]
+    for fn in (so.ik_host, so.engine_host, so.multibody_host):
+        fn.restype = ctypes.c_int
     return so
 
 
@@ -104,6 +109,16 @@ def test_ik_source_on_host_matches_plain(host_kernels, iters):
 def test_engine_source_on_host_matches_plain(host_kernels, task, control,
                                              kind):
     """Each scene the kernel library holds, 2 substeps."""
+    _engine_host_vs_plain(host_kernels, task, control, kind)
+
+
+def test_engine_source_on_host_matches_plain_sphere_plane(host_kernels):
+    """The push joint-control scene with a wrist or elbow sphere on the
+    table: the sphere-plane lanes act."""
+    _engine_host_vs_plain(host_kernels, 'push', 'joint', 'sphere')
+
+
+def _engine_host_vs_plain(host_kernels, task, control, kind):
     has_obj = task == 'push'
     sc = D.scene_consts(S.single_step_scene(has_obj),
                         ik_workspace=control == 'ee')
@@ -124,6 +139,52 @@ def test_engine_source_on_host_matches_plain(host_kernels, task, control,
                                n(ref.ee_contact_force), atol=2e-3 / D.DT_SUB)
     if kind == 'contact':
         assert np.abs(n(out.ee_contact_force)).max() > 1.0
+    if kind == 'sphere':
+        assert plain_run(sc, st, ctl, 2)[1]['sphere-plane'] > 0.5
+
+
+def _multibody_host(host_kernels, sc, st, ctl, n_sub):
+    rows, ctl_rows = cuda_multibody.pack(st, ctl)
+    prm = torch.tensor(cuda_multibody.scene_params(sc), dtype=torch.float32)
+    out = torch.empty_like(rows)
+    assert host_kernels.multibody_host(
+        sc.nb, sc.plane_mask, sc.geom_mask, rows.data_ptr(),
+        ctl_rows.data_ptr(), prm.data_ptr(), out.data_ptr(), rows.shape[1],
+        n_sub, sc.solver_iters) == 0
+    return cuda_multibody.unpack(out, sc.nb)
+
+
+@pytest.mark.parametrize('nb', [2, 5])
+@pytest.mark.parametrize('kind', ['drop', 'contact', 'sphere'])
+def test_multibody_source_on_host_matches_plain(host_kernels, nb, kind):
+    """K3's scenes of block_rearrange (2 blocks) and block_stack (5), 2
+    substeps: EE control on the drop and contact states, joint control
+    with a wrist or elbow sphere on the table."""
+    sc = D.multibody_consts(S.multi_step_scene(nb),
+                            ik_workspace=kind != 'sphere')
+    st, ctl = multi_inputs(nb, kind, N_HOST // 2, seed=1)
+    st, ctl = torch_state(st), torch_controls(ctl)
+    out = _multibody_host(host_kernels, sc, st, ctl, 2)
+    ref, active = plain_run(sc, st, ctl, 2)
+    assert env_errors(out, ref, ARM_FIELDS + BODY_FIELDS).max() <= 2e-3
+    np.testing.assert_allclose(n(out.ee_contact_force),
+                               n(ref.ee_contact_force), atol=2e-3 / D.DT_SUB)
+    np.testing.assert_array_equal(n(out.door_q), n(st.door_q))
+    want = {'drop': ('box-plane',),
+            'contact': ('box-box', 'finger-box'),
+            'sphere': ('sphere-plane',)}[kind]
+    assert all(active[g] > 0 for g in want), active
+
+
+def _scene_table(name):
+    """The instances of a kernel library's scene table macro, as strings:
+    (has a body or number of bodies, plane mask, body mask)."""
+    text = (_build.CSRC / (name + '.cu')).read_text()
+    macro = {'engine': 'ENGINE_SCENES', 'multibody': 'MULTIBODY_SCENES'}[name]
+    table = text[text.index('#define ' + macro):]
+    table = table[:table.index('\n\n')]
+    return set(re.findall(r'X\((\w+),\s*(0x[0-9a-f]+),\s*(0x[0-9a-f]+)\)',
+                          table))
 
 
 @pytest.mark.parametrize('task', ['reach', 'push', 'pick_and_place'])
@@ -132,26 +193,42 @@ def test_engine_library_holds_every_scene(task, joint_control):
     """The (has a body, plane mask, box mask) of every scene the envs build
     (ops/lane_cull.py decides the masks) is one `ENGINE_SCENES` instance of
     engine.cu: a missing one would fail only at launch, on the card."""
-    text = (_build.CSRC / 'engine.cu').read_text()
-    table = text[text.index('#define ENGINE_SCENES'):]
-    table = table[:table.index('\n\n')]
-    held = {(hb == 'true', int(pm, 16), int(gm, 16)) for hb, pm, gm in
-            re.findall(r'X\((true|false),\s*(0x[0-9a-f]+),\s*(0x[0-9a-f]+)\)',
-                       table)}
+    held = {(hb == 'true', int(pm, 16), int(gm, 16))
+            for hb, pm, gm in _scene_table('engine')}
     assert len(held) == 4
     sc = make_vec_env(num_envs=1, task=task, joint_control=joint_control,
                       device='cpu').core.scene
     assert (sc.has_body, sc.plane_mask, sc.geom_mask) in held
 
 
+@pytest.mark.parametrize('task', ['block_rearrange', 'block_stack'])
+@pytest.mark.parametrize('joint_control', [False, True])
+def test_multibody_library_holds_every_scene(task, joint_control):
+    """The (bodies, plane mask, body mask) of every scene the multi-step
+    envs build, 1-5 blocks, is one `MULTIBODY_SCENES` instance of
+    multibody.cu: a missing one would fail only at launch, on the card."""
+    held = {(int(nb), int(pm, 16), int(gm, 16))
+            for nb, pm, gm in _scene_table('multibody')}
+    assert len(held) == 10
+    env = make_vec_env(num_envs=1, task=task, num_block=2,
+                       joint_control=joint_control, device='cpu')
+    assert env.core.scene == D.multibody_consts(
+        S.multi_step_scene(2), ik_workspace=not joint_control)
+    for nb in range(1, 6):
+        sc = D.multibody_consts(S.multi_step_scene(nb),
+                                ik_workspace=not joint_control)
+        assert (sc.nb, sc.plane_mask, sc.geom_mask) in held
+
+
 # ---------------------------------------------- operation count, CPU
 @pytest.fixture(scope='module')
-def count_kernels(tmp_path_factory):
+def count_kernels():
     """tests/kernels_count.cpp built for the host; skips where there is no
     C++ compiler."""
     if not (shutil.which('g++') or shutil.which('c++')):
         pytest.skip('needs a host C++ compiler')
-    return kernel_ops.build(tmp_path_factory.mktemp('kernels_count'))
+    return kernel_ops.bind(kernel_ops.host_library(
+        kernel_ops.SRC, HOST_FLAGS + ['-pthread']))
 
 
 @pytest.mark.parametrize('task', ['push', 'reach'])
@@ -181,6 +258,24 @@ def test_engine_count_build_runs_the_host_build(host_kernels, count_kernels,
     ops1, _ = kernel_ops.engine_ops(count_kernels, sc, st, ctl, 1)
     assert 0 < ops1 < ops
     assert kernel_ops.engine_ops(count_kernels, sc, st, ctl, 0)[0] == 0
+
+
+@pytest.mark.parametrize('nb', [2, 5])
+def test_multibody_count_build_runs_the_host_build(host_kernels,
+                                                   count_kernels, nb):
+    """K3's counting build (the scenes chip_smoke.py counts) computes
+    exactly what the float build computes, on the block pile; the count
+    grows with the substeps and is zero for none."""
+    sc = D.multibody_consts(S.multi_step_scene(nb))
+    st, ctl = multi_inputs(nb, 'contact', 16, seed=1)
+    st, ctl = torch_state(st), torch_controls(ctl)
+    out = _multibody_host(host_kernels, sc, st, ctl, 3)
+    ops, counted = kernel_ops.multibody_ops(count_kernels, sc, st, ctl, 3)
+    for f in D.PhysicsState._fields:
+        assert torch.equal(getattr(counted, f), getattr(out, f)), f
+    ops1, _ = kernel_ops.multibody_ops(count_kernels, sc, st, ctl, 1)
+    assert 0 < ops1 < ops
+    assert kernel_ops.multibody_ops(count_kernels, sc, st, ctl, 0)[0] == 0
 
 
 @pytest.mark.parametrize('iters', [0, 1, 8])
@@ -287,6 +382,78 @@ def test_engine_kernel_matches_plain_on_main_path(cuda, task, n_sub, tol):
     assert env_errors(out, ref, fields).max() <= tol
 
 
+# K3's stress checks: (blocks, state, substeps). Each 100-substep case costs
+# about a minute of noisy plain runs on the card; the squeezed pile after
+# 100 substeps is checked by chip_smoke.py.
+K3_STRESS_CASES = [(nb, kind, 2) for nb in (2, 5)
+                   for kind in ('drop', 'contact', 'sphere')] + [
+                       (2, 'drop', 100), (5, 'drop', 100), (2, 'sphere', 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('nb,kind,n_sub', K3_STRESS_CASES)
+def test_multibody_kernel_matches_plain(cuda, nb, kind, n_sub):
+    """K3 on the stress states of block_rearrange's (2 blocks) and
+    block_stack's (5) scenes: EE control on the dropped blocks and on the
+    squeezed pile, joint control with a wrist or elbow sphere on the
+    table. Each env within its bound (`noise_bound`); no more envs beyond
+    it than a noisy plain run itself puts beyond the others' bound."""
+    sc = D.multibody_consts(S.multi_step_scene(nb),
+                            ik_workspace=kind != 'sphere')
+    st, ctl = multi_inputs(nb, kind, N, seed=1)
+    st, ctl = torch_state(st, cuda), torch_controls(ctl, cuda)
+    w = CudaMultiBodyEngine(sc)
+    out = w.control_step(st, ctl, n_substeps=n_sub)
+    torch.cuda.synchronize()
+    assert w.launches == 1
+    ref = MP.control_step(sc, st, ctl, n_sub)
+    fields = ARM_FIELDS + BODY_FIELDS
+    err = env_errors(out, ref, fields)
+    bound, _, allowed = noise_bound(
+        sc, st, ctl, n_sub, ref, lambda a, b: env_errors(a, b, fields),
+        1e-4 if n_sub == 2 else 2e-3)
+    bound = n(bound)
+    beyond = np.nonzero(err > bound)[0]
+    assert len(beyond) <= allowed, (beyond[:8], err[beyond[:8]],
+                                    bound[beyond[:8]], allowed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n_sub,tol', [(2, 1e-4), (100, 2e-3)])
+def test_multibody_kernel_matches_plain_on_main_path(cuda, n_sub, tol):
+    """The control step's inputs at step 26 of a seeded block_rearrange
+    drive (2 blocks) at 4096 envs: every env within 1e-4 after 2 substeps
+    and within 2e-3 after the full 100, but where the fingers push a block
+    and the plain version's own noisy runs part by more than that (then
+    `noise_bound`)."""
+    env = make_vec_env(num_envs=N, task='block_rearrange', num_block=2,
+                       seed=2)
+    state, _ = env.reset()
+    g = torch.Generator(device=cuda).manual_seed(2)
+    for _ in range(25):
+        state, *_ = env.step(state, 2 * torch.rand(
+            (N, env.cfg.action_dim), generator=g, device=cuda) - 1)
+    state, f_target = env.core.step_decode_pre(state, torch.zeros(
+        (N, env.cfg.action_dim), device=cuda))
+    zero = state.phys.door_q
+    ctl = D.Controls(q_target=env.core.arm_targets(state), f_target=f_target,
+                     door_motor_on=zero > 0, door_target=zero)
+    sc = env.core.scene
+    w = CudaMultiBodyEngine(sc)
+    out = w.control_step(state.phys, ctl, n_substeps=n_sub)
+    ref = MP.control_step(sc, state.phys, ctl, n_sub)
+    fields = ARM_FIELDS + BODY_FIELDS
+    err = env_errors(out, ref, fields)
+    if err.max() > tol:
+        # fingers pushing a block: where the plain version's own noisy runs
+        # spread beyond the flat bound, hold the env to noise_bound's
+        bound, _, allowed = noise_bound(
+            sc, state.phys, ctl, n_sub, ref,
+            lambda a, b: env_errors(a, b, fields), tol)
+        assert (err > n(bound)).sum() <= allowed
+    assert env.core.engine.launches == 25
+
+
 @pytest.mark.cuda
 def test_kernel_wrappers_check_operands(cuda):
     """A wrong dtype or shape raises before any launch."""
@@ -300,3 +467,13 @@ def test_kernel_wrappers_check_operands(cuda):
         w.launch(torch.zeros((21, 8), device=cuda),
                  torch.zeros((8, 7), device=cuda).t())
     assert w.launches == 0
+    # K3: a state of another number of blocks, or rows of another height
+    m = CudaMultiBodyEngine(D.multibody_consts(S.multi_step_scene(2)))
+    st, ctl = multi_inputs(3, 'drop', 8)
+    with pytest.raises(ValueError, match='bodies'):
+        m.control_step(torch_state(st, cuda), torch_controls(ctl, cuda))
+    with pytest.raises(ValueError):
+        m.launch(torch.zeros((62, 8), device=cuda),
+                 torch.zeros((11, 8), device=cuda),
+                 torch.zeros((62, 8), device=cuda), 1)
+    assert m.launches == 0

@@ -1,6 +1,8 @@
 """Helpers shared by the port's tests (tests/test_torch_*.py). Imports no
 JAX, so that the card-only tests run where JAX is not installed."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -8,6 +10,7 @@ import torch
 from pybullet_multigoal_gym_tpu_torch.model import kuka_model as KM
 from pybullet_multigoal_gym_tpu_torch.ops import dynamics as D
 from pybullet_multigoal_gym_tpu_torch.ops import engine_plain as EP
+from pybullet_multigoal_gym_tpu_torch.ops import multibody_plain as MP
 
 ARM_FIELDS = ('q', 'qd', 'fq', 'fqd')
 BODY_FIELDS = ('body_pos', 'body_quat', 'body_linvel', 'body_angvel')
@@ -114,17 +117,125 @@ def torch_controls(d, device='cpu'):
                          for k, v in d.items()})
 
 
+def sphere_plane_q(count, seed=0):
+    """Arm configurations (numpy, (count, 7)) that lower a wrist or elbow
+    collision sphere (links 3-5) onto the table plane (z 0.16): drawn around
+    the rest pose within the joint limits, kept where such a sphere reaches
+    up to 3 mm into the plane while the finger pads stay above it."""
+    keep = _sphere_plane_configs(seed)
+    return keep[np.arange(count) % len(keep)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sphere_plane_configs(seed, plane_z=0.16):
+    rng = np.random.default_rng(seed)
+    lo = np.asarray(KM.JOINT_LIMIT_LOWER, np.float32)
+    hi = np.asarray(KM.JOINT_LIMIT_UPPER, np.float32)
+    cand = np.clip(np.asarray(KM.KUKA_REST_POSE, np.float32)
+                   + rng.uniform(-1.6, 1.6, (16384, 7)).astype(np.float32),
+                   lo, hi)
+    ch = EP.fk_chain(t(cand), torch.zeros((len(cand), 2)))
+    radius = np.asarray(KM.ARM_SPHERE_RADIUS, np.float32)
+    pen = plane_z + radius - n(ch['spheres'])[..., 2]         # (M, 7)
+    low = (np.asarray(KM.ARM_SPHERE_LINK) < 6)
+    touch = ((pen[:, low] > 0.0) & (pen[:, low] < 0.003)).any(1)
+    clear = (n(ch['fpos'])[..., 2] > plane_z + 0.06).all(1)
+    keep = cand[touch & clear]
+    assert len(keep) >= 16, len(keep)
+    return keep
+
+
+def sphere_inputs(st, count, seed):
+    """``st`` with a wrist or elbow sphere resting on the table
+    (sphere_plane_q), the arm moving slowly and servoing to within 0.01 rad
+    of where it is, and its controls."""
+    rng = np.random.default_rng(seed + 2)
+    st.update(q=sphere_plane_q(count, seed),
+              qd=rng.uniform(-0.02, 0.02, (count, 7)).astype(np.float32))
+    ctl = mk_controls(count)
+    ctl.update(q_target=st['q'] + rng.uniform(-0.01, 0.01, (count, 7))
+               .astype(np.float32), f_target=st['fq'].copy())
+    return st, ctl
+
+
 def inputs(has_obj, kind, count, seed=0):
     """Physics state and controls (numpy): 'drop' (the JAX package's test
-    state) or 'contact' (mk_contact_state)."""
+    state), 'contact' (mk_contact_state) or 'sphere' (a wrist or elbow
+    sphere on the table: sphere_inputs)."""
     if kind == 'drop':
         return mk_state(has_obj, count, seed), mk_controls(count)
+    if kind == 'sphere':
+        return sphere_inputs(mk_state(has_obj, count, seed), count, seed)
     st = mk_contact_state(has_obj, count, seed)
     return st, mk_controls(count, st, seed)
 
 
+# block positions of the multi-body 'drop' state (the JAX package's own
+# tests/test_pallas_multibody.py)
+_DROP_BLOCKS = np.array([[-0.50, 0.05, 0.21], [-0.45, -0.05, 0.19],
+                         [-0.55, 0.0, 0.23], [-0.48, 0.10, 0.20],
+                         [-0.52, -0.10, 0.22]], np.float32)
+# the multi-body 'contact' pile, offsets from the bottom block of a stack
+# of two: the top one (block 0, between the finger pads), the bottom one,
+# one beside it along x with one on that, one on its other side
+_PILE = np.array([[0.0, 0.0, 0.03], [0.0, 0.0, 0.0], [0.031, 0.0, 0.0],
+                  [0.031, 0.0, 0.03], [-0.031, 0.0, 0.0]], np.float32)
+# IK solution for the tip at (-0.52, 0, 0.205): the finger pads around the
+# top block of the stack, the palm above it
+_Q_STACK = np.array([0.0, -0.6311, 0.0, 1.7621, 0.0, -0.7484, 0.0],
+                    np.float32)
+
+
+def _tilted(rng, shape, tilt):
+    q = np.concatenate([np.ones(shape + (1,), np.float32),
+                        rng.uniform(-tilt, tilt, shape + (3,))
+                        .astype(np.float32)], -1)
+    return (q / np.linalg.norm(q, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def multi_inputs(nb, kind, count, seed=0):
+    """Physics state and controls (numpy) for a scene of ``nb`` blocks:
+    'drop' (the JAX package's multi-body test state: blocks dropped apart,
+    arm at rest, fingers closing), 'contact' (a pile of blocks resting on
+    each other, the fingers squeezing the top block of a stack while the
+    arm holds: finger-box, box-box and box-plane lanes act)
+    or 'sphere' (a wrist or elbow sphere on the table: sphere_inputs)."""
+    rng = np.random.default_rng(seed)
+
+    def u(lo, hi, shape):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    z3 = np.zeros((count, nb, 3), np.float32)
+    st = mk_state(False, count, seed)
+    st.update(body_pos=_DROP_BLOCKS[None, :nb] + u(-0.02, 0.02, (count, nb, 3)),
+              body_quat=np.tile(np.array([1.0, 0, 0, 0], np.float32),
+                                (count, nb, 1)),
+              body_linvel=z3, body_angvel=z3)
+    if kind == 'drop':
+        return st, mk_controls(count)
+    if kind == 'sphere':
+        return sphere_inputs(st, count, seed)
+    base = np.array([-0.52, 0.0, 0.176], np.float32)
+    # resting contact: each block within 1 mm of the ones it sits on or
+    # beside, slightly tilted; the finger pads within 1 mm of the top
+    # block's sides (fq 0.02 touches it)
+    gap = np.concatenate([u(-0.001, 0.001, (count, nb, 2)),
+                          u(0.0, 0.001, (count, nb, 1))], -1)
+    st.update(q=_Q_STACK + u(-0.02, 0.02, (count, 7)),
+              qd=u(-0.02, 0.02, (count, 7)), fq=u(0.019, 0.021, (count, 2)),
+              fqd=u(-0.02, 0.02, (count, 2)),
+              body_pos=base + _PILE[None, :nb] * 1.01 + gap,
+              body_quat=_tilted(rng, (count, nb), 0.02),
+              body_linvel=u(-0.01, 0.01, (count, nb, 3)))
+    # the arm holds within 0.01 rad of where it is; the fingers squeeze
+    ctl = mk_controls(count)
+    ctl['q_target'] = st['q'] + u(-0.01, 0.01, (count, 7))
+    return st, ctl
+
+
 def lane_group(lane):
-    """The contact-lane group of a plain-version lane, from its metadata."""
+    """The contact-lane group of a K2 plain-version lane, from its
+    metadata."""
     if lane.finger_idx >= 0:
         return 'finger-box' if lane.body_sgn else 'finger-plane'
     if lane.link >= 0:
@@ -133,15 +244,23 @@ def lane_group(lane):
 
 
 def plain_run(sc, st, ctl, n_sub, noise_seed=None):
-    """The plain control step (ops/engine_plain.py, substep by substep, as
-    its `control_step` runs it). Returns the state after it and, per lane
+    """The plain control step (ops/engine_plain.py for a K2 scene,
+    ops/multibody_plain.py for a K3 scene, substep by substep, as their
+    `control_step` runs it). Returns the state after it and, per lane
     group, the share of envs where a lane of the group is active in some
     substep. With ``noise_seed``, every element of the state moves by -1, 0
     or +1 ulp (seeded) before each substep instead, and no shares are
     kept: the spread of such runs is the plain version's own sensitivity to
     rounding, which enters a run at every substep."""
-    carry = (st.q, st.qd, st.fq, st.fqd, st.body_pos[:, 0],
-             st.body_quat[:, 0], st.body_linvel[:, 0], st.body_angvel[:, 0])
+    multi = isinstance(sc, D.MultiBodyConsts)
+    if multi:
+        carry = (st.q, st.qd, st.fq, st.fqd, st.body_pos, st.body_quat,
+                 st.body_linvel, st.body_angvel)
+        groups = [MP.lane_group(l) for l in MP.lane_plan(sc)]
+    else:
+        carry = (st.q, st.qd, st.fq, st.fqd, st.body_pos[:, 0],
+                 st.body_quat[:, 0], st.body_linvel[:, 0],
+                 st.body_angvel[:, 0])
     g = None if noise_seed is None else torch.Generator(
         device=st.q.device).manual_seed(noise_seed)
     active = {}
@@ -149,17 +268,48 @@ def plain_run(sc, st, ctl, n_sub, noise_seed=None):
     for _ in range(n_sub):
         if g is None:
             q, _, fq, _, bp, bq, _, _ = carry
-            Ra = EP.qmat(bq) if sc.has_body else None
-            for lane in EP.build_lanes(sc, EP.fk_chain(q, fq), bp, bq, Ra):
-                grp = lane_group(lane)
-                active[grp] = active.get(grp, False) | (lane.active > 0)
+            if multi:
+                act = MP.build_lanes(sc, EP.fk_chain(q, fq), bp, bq,
+                                     EP.qmat(bq))[3]
+                lanes = [(grp, act[:, k]) for k, grp in enumerate(groups)]
+            else:
+                Ra = EP.qmat(bq) if sc.has_body else None
+                lanes = [(lane_group(l), l.active) for l in
+                         EP.build_lanes(sc, EP.fk_chain(q, fq), bp, bq, Ra)]
+            for grp, a in lanes:
+                active[grp] = active.get(grp, False) | (a > 0)
         else:
             carry = tuple(torch.nextafter(x, x + torch.randint(
                 -1, 2, x.shape, generator=g, device=x.device).to(x.dtype))
                 for x in carry)
-        carry, ee = EP.substep(sc, carry, ctl.q_target, ctl.f_target)
+        if multi:
+            carry, ee = MP.substep(sc, carry, ctl.q_target, ctl.f_target, g)
+        else:
+            carry, ee = EP.substep(sc, carry, ctl.q_target, ctl.f_target)
     q, qd, fq, fqd, bp, bq, bv, bw = carry
-    out = st._replace(q=q, qd=qd, fq=fq, fqd=fqd, body_pos=bp[:, None],
-                      body_quat=bq[:, None], body_linvel=bv[:, None],
-                      body_angvel=bw[:, None], ee_contact_force=ee)
+    if not multi:
+        bp, bq, bv, bw = bp[:, None], bq[:, None], bv[:, None], bw[:, None]
+    out = st._replace(q=q, qd=qd, fq=fq, fqd=fqd, body_pos=bp, body_quat=bq,
+                      body_linvel=bv, body_angvel=bw, ee_contact_force=ee)
     return out, {k: float(v.float().mean()) for k, v in sorted(active.items())}
+
+
+def noise_bound(sc, st, ctl, n_sub, ref, errors, tol, runs=8, factor=2.0):
+    """Per-env bounds from the plain version's own sensitivity to rounding:
+    ``runs`` noisy plain runs (`plain_run`), each env's spread (the largest
+    ``errors(run, ref)``, a (N,) tensor) and its bound, the larger of
+    ``tol`` and ``factor`` times the spread. Also how many envs a noisy run
+    itself puts beyond the bound that the other runs set (the most over the
+    runs): in a chaotic state (a squeezed pile after 100 substeps) a run can
+    take a branch of a contact decision that none of the others takes, and
+    another rounding of the same physics, the kernel's, may too. Returns
+    (bound, spread, allowed)."""
+    errs = torch.stack([torch.as_tensor(errors(
+        plain_run(sc, st, ctl, n_sub, seed)[0], ref)) for seed in range(runs)])
+    spread = errs.max(0).values
+    allowed = 0
+    for k in range(runs):
+        others = torch.cat([errs[:k], errs[k + 1:]]).max(0).values
+        allowed = max(allowed, int((errs[k] > torch.clamp(
+            factor * others, min=tol)).sum()))
+    return torch.clamp(factor * spread, min=tol), spread, allowed
