@@ -188,56 +188,95 @@ STRESS = (('push', 'ee', 'drop'), ('push', 'ee', 'contact'),
           ('reach', 'ee', 'drop'), ('reach', 'ee', 'contact'))
 N_NOISE = 8          # plain runs with 1-ulp noise per stress check
 SPREAD_FACTOR = 2.0  # an env may part by twice the plain version's spread
+FLAT = ((2, 1e-4), (100, 2e-3))   # substeps, and the flat bound after them
 
 
-def stress_check(phase, kernel, sc, w, st, ctl, n_fields, calibrated=False,
-                 flat_first=False, substeps=((2, 1e-4), (100, 2e-3)), **tag):
-    """A control-step kernel against its plain version after ``substeps``
-    (2 and 100; the tolerance of each): each env within the tolerance (1e-4, 2e-3) or within
-    SPREAD_FACTOR times its spread over N_NOISE plain runs with 1-ulp noise
-    (tests/torch_common.py:noise_bound), whichever is larger. With
-    ``calibrated`` (K3), as many envs may lie beyond their bound as a noisy
-    plain run itself puts beyond the bound the other runs set. With
-    ``flat_first`` (a main path) the noisy runs are made only where an env
-    parts by more than the tolerance."""
-    import torch
-    from tests.torch_common import noise_bound, plain_run
+def main_path_check(phase, sc, w, c, n_fields, **tag):
+    """A control-step kernel against its plain version on a main path's own
+    inputs ``c`` (main_path_inputs), after 2 and 100 substeps: every env
+    within the flat bound (FLAT). Where an env parts by more (the fingers
+    push a block, and the plain version's own noisy runs part by more too),
+    that env is held to its noise bound (tests/torch_common.py:noise_bound)
+    and none may lie beyond it. Returns the largest error."""
     worst = 0.0
-    for n_sub, tol in substeps:
-        out = w.control_step(st, ctl, n_substeps=n_sub)
-        ref, active = plain_run(sc, st, ctl, n_sub)
-        e = env_errors(out, ref, n_fields)
+    for n_sub, tol in FLAT:
+        out, ref, active, e = compare(sc, w, c['phys'], c['controls'],
+                                      n_fields, n_sub)
+        noise = (noise_check(sc, c['phys'], c['controls'], n_sub, ref,
+                             n_fields, tol)[:2] + (0, 1.0)
+                 if e.max() > tol else None)
+        held(phase, sc, n_sub, tol, out, e, active, noise,
+             inputs='main path, step %d' % c['step'], **tag)
         worst = max(worst, float(e.max()))
-        if flat_first and not e.max() > tol:
-            bound, spread, allowed = torch.full_like(e, tol), None, 0
-        else:
-            bound, spread, allowed = noise_bound(
-                sc, st, ctl, n_sub, ref,
-                lambda a, b: env_errors(a, b, n_fields), tol, N_NOISE,
-                SPREAD_FACTOR)
-            allowed = allowed if calibrated else 0
-        beyond = torch.nonzero(e > bound).flatten()
-        noise = {} if spread is None else dict(
-            plain_noise_envs_beyond_tol=int((spread > tol).sum()),
-            plain_noise_max_spread=float(spread.max()),
-            envs_beyond_allowed=allowed)
-        emit(phase, **tag, substeps=n_sub, envs=st.q.shape[0],
-             max_abs_err=float(e.max()), median_abs_err=float(e.median()),
-             tol=tol, envs_beyond_tol=int((e > tol).sum()), **noise,
-             max_share_of_env_bound=float((e / bound).max()),
-             envs_beyond_env_bound=int(beyond.numel()), lanes_active=active,
-             max_ee_force=float(out.ee_contact_force.abs().max()))
-        if beyond.numel() > allowed:
-            b = beyond[:8]
-            raise AssertionError(
-                '%s (%s, %d substeps) disagrees with its plain version in '
-                'envs %s: %s against their bounds %s'
-                % (kernel, tag, n_sub, b.tolist(), e[b].tolist(),
-                   bound[b].tolist()))
+    return worst
+
+
+def stress_check(phase, sc, w, st, ctl, n_fields, substeps=FLAT, **tag):
+    """A control-step kernel against its plain version on a stress state
+    after ``substeps``: each env within the flat bound or SPREAD_FACTOR
+    times its spread over N_NOISE plain runs with 1-ulp noise
+    (tests/torch_common.py:noise_bound), whichever is larger. K2: no env
+    beyond it. K3 (block piles, where a pad and a block face lie nearly
+    parallel and the SAT axis choice is a tie): as many envs as a noisy
+    plain run itself puts beyond the other runs' bound, each within the
+    largest share of that bound such a run reaches."""
+    from pybullet_multigoal_gym_tpu_torch.ops import dynamics as D
+    for n_sub, tol in substeps:
+        out, ref, active, e = compare(sc, w, st, ctl, n_fields, n_sub)
+        noise = noise_check(sc, st, ctl, n_sub, ref, n_fields, tol)
+        if not isinstance(sc, D.MultiBodyConsts):
+            noise = noise[:2] + (0, 1.0)
+        held(phase, sc, n_sub, tol, out, e, active, noise, **tag)
         if tag.get('inputs') == 'sphere' and not active['sphere-plane'] > 0:
             raise AssertionError('the sphere state activates no sphere-plane '
                                  'lane: %s' % active)
-    return worst
+
+
+def compare(sc, w, st, ctl, n_fields, n_sub):
+    """The kernel's and the plain version's control step from one state:
+    (kernel's state, plain state, lanes_active, per-env max |difference|)."""
+    from tests.torch_common import plain_run
+    out = w.control_step(st, ctl, n_substeps=n_sub)
+    ref, active = plain_run(sc, st, ctl, n_sub)
+    return out, ref, active, env_errors(out, ref, n_fields)
+
+
+def noise_check(sc, st, ctl, n_sub, ref, n_fields, tol):
+    """(bound, spread, allowed, cap) of tests/torch_common.py:noise_bound
+    over N_NOISE noisy plain runs."""
+    from tests.torch_common import noise_bound
+    return noise_bound(sc, st, ctl, n_sub, ref,
+                       lambda a, b: env_errors(a, b, n_fields), tol, N_NOISE,
+                       SPREAD_FACTOR)
+
+
+def held(phase, sc, n_sub, tol, out, e, active, noise, **tag):
+    """Emit a kernel check's line and fail it: ``noise`` is None (every env
+    held to ``tol``) or (bound, spread, allowed, cap) from noise_check."""
+    import torch
+    from pybullet_multigoal_gym_tpu_torch.ops import dynamics as D
+    bound, spread, allowed, cap = noise or (torch.full_like(e, tol), None,
+                                            0, 1.0)
+    share = e / bound
+    beyond = torch.nonzero(share > 1).flatten()
+    extra = {} if spread is None else dict(
+        plain_noise_envs_beyond_tol=int((spread > tol).sum()),
+        plain_noise_max_spread=float(spread.max()),
+        envs_beyond_allowed=allowed, share_allowed=cap)
+    emit(phase, **tag, substeps=n_sub, envs=e.shape[0],
+         max_abs_err=float(e.max()), median_abs_err=float(e.median()),
+         tol=tol, envs_beyond_tol=int((e > tol).sum()), **extra,
+         max_share_of_env_bound=float(share.max()),
+         envs_beyond_env_bound=int(beyond.numel()), lanes_active=active,
+         max_ee_force=float(out.ee_contact_force.abs().max()))
+    if beyond.numel() > allowed or share.max() > cap:
+        b = beyond[:8]
+        raise AssertionError(
+            '%s (%s, %d substeps) disagrees with its plain version in envs '
+            '%s: %s against their bounds %s (%d envs and a share of %g '
+            'allowed)' % ('K3' if isinstance(sc, D.MultiBodyConsts) else 'K2',
+                          tag, n_sub, b.tolist(), e[b].tolist(),
+                          bound[b].tolist(), allowed, cap))
 
 
 def phase_engine(kernels, captured, count_lib):
@@ -246,8 +285,9 @@ def phase_engine(kernels, captured, count_lib):
     - The main path's own inputs (push and reach, steps 1 and 26 of a seeded
       drive): every env within 1e-4 after 2 substeps and within 2e-3 after
       the full 100, the bound the JAX package holds its Pallas engine to
-      against its XLA engine. ``lanes_active`` says which lane groups act
-      there (per group, the share of envs with an active lane).
+      against its XLA engine (`main_path_check`). ``lanes_active`` says
+      which lane groups act there (per group, the share of envs with an
+      active lane).
     - The stress states (``STRESS``, engine_inputs; 'contact' makes the
       finger-box, finger-plane and sphere-box lanes act), whose impulses
       run to thousands of newtons: there the plain version's own answer
@@ -266,7 +306,6 @@ def phase_engine(kernels, captured, count_lib):
     from pybullet_multigoal_gym_tpu_torch.ops import scene as S
     from pybullet_multigoal_gym_tpu_torch.ops.cuda_engine import CudaEngine, pack
     from tests.kernel_ops import engine_ops
-    from tests.torch_common import plain_run
     engines = {}
 
     def engine(task, control):
@@ -280,32 +319,16 @@ def phase_engine(kernels, captured, count_lib):
     for task in ('push', 'reach'):
         sc, w = engine(task, 'ee')
         n_fields = 8 if task == 'push' else 4    # the box only where it exists
-        worst = 0.0
-        for c in captured[task]:
-            for n_sub, tol in ((2, 1e-4), (100, 2e-3)):
-                out = w.control_step(c['phys'], c['controls'], n_substeps=n_sub)
-                ref, active = plain_run(sc, c['phys'], c['controls'], n_sub)
-                e = env_errors(out, ref, n_fields)
-                emit('k2_vs_plain', task=task, control='ee',
-                     inputs='main path, step %d' % c['step'], substeps=n_sub,
-                     envs=N_ENVS, max_abs_err=float(e.max()), tol=tol,
-                     lanes_active=active,
-                     max_ee_force=float(out.ee_contact_force.abs().max()))
-                if not e.max() <= tol:
-                    raise AssertionError(
-                        'K2 (%s, main path step %d, %d substeps) disagrees '
-                        'with its plain version: %g'
-                        % (task, c['step'], n_sub, float(e.max())))
-                worst = max(worst, float(e.max()))
-        res[task] = dict(max_abs_err=worst)
+        res[task] = dict(max_abs_err=max(
+            main_path_check('k2_vs_plain', sc, w, c, n_fields, task=task,
+                            control='ee') for c in captured[task]))
 
     for task, control, kind in STRESS:
         sc, w = engine(task, control)
         n_fields = 8 if task == 'push' else 4
         st, ctl = engine_inputs(task == 'push', kind)
-        stress_check('k2_vs_plain', 'K2', sc, w, st, ctl, n_fields,
-                     substeps=((2, 1e-4),) if kind == 'drop' else
-                     ((2, 1e-4), (100, 2e-3)),
+        stress_check('k2_vs_plain', sc, w, st, ctl, n_fields,
+                     substeps=FLAT[:1] if kind == 'drop' else FLAT,
                      task=task, control=control, inputs=kind)
 
     for task in ('push', 'reach'):
@@ -342,16 +365,16 @@ def phase_multibody(kernels, captured, count_lib):
       at 1024): every env within 1e-4 after 2 substeps and within 2e-3 after
       the full 100, but where the fingers push a block and the plain
       version's own noisy runs part by more than that; there the env is
-      held to its noise bound (`stress_check`, ``flat_first``).
-      ``lanes_active`` says which lane groups act.
+      held to its noise bound, and none may lie beyond it
+      (`main_path_check`). ``lanes_active`` says which lane groups act.
     - The stress states (``K3_STRESS``: the block pile the fingers squeeze,
       and a wrist or elbow sphere on the table under joint control): each
       env within the flat bound or SPREAD_FACTOR times its spread over
       N_NOISE noisy plain runs, whichever is larger; after 100 substeps of
       the pile, a few envs take a branch of a contact decision (a pad and a
       block face nearly parallel: the SAT axis choice) that no noisy run
-      takes, so as many envs may lie beyond their bound as a noisy run
-      itself puts beyond the others' (``calibrated``).
+      takes, so as many envs may lie beyond their bound, and as far, as a
+      noisy run itself lies beyond the others' (`stress_check`).
 
     Timed on both main paths' step-26 inputs: the kernel alone on inputs
     packed once (``ms``) and the wrapper's whole call (``call_ms``); the
@@ -365,25 +388,20 @@ def phase_multibody(kernels, captured, count_lib):
     from tests.kernel_ops import multibody_ops
     from tests.torch_common import multi_inputs, torch_controls, torch_state
     worst = 0.0
-    for c in captured['block_rearrange']:
-        worst = max(worst, stress_check(
-            'k3_vs_plain', 'K3', c['scene'], CudaMultiBodyEngine(c['scene']),
-            c['phys'], c['controls'], N_FIELDS, calibrated=True,
-            flat_first=True, task='block_rearrange', blocks=c['scene'].nb,
-            control='ee', inputs='main path, step %d' % c['step']))
-    c = captured['block_stack'][-1]
-    stress_check('k3_vs_plain', 'K3', c['scene'], CudaMultiBodyEngine(
-        c['scene']), c['phys'], c['controls'], N_FIELDS, calibrated=True,
-        flat_first=True, task='block_stack', blocks=c['scene'].nb,
-        control='ee', inputs='main path, step %d' % c['step'])
+    for task in ('block_rearrange', 'block_stack'):
+        for c in captured[task]:
+            e = main_path_check('k3_vs_plain', c['scene'],
+                                CudaMultiBodyEngine(c['scene']), c, N_FIELDS,
+                                task=task, blocks=c['scene'].nb, control='ee')
+            if task == 'block_rearrange':
+                worst = max(worst, e)
     for nb, control, kind in K3_STRESS:
         sc = D.multibody_consts(S.multi_step_scene(nb),
                                 ik_workspace=control == 'ee')
         st, ctl = multi_inputs(nb, kind, N_ENVS)
-        stress_check('k3_vs_plain', 'K3', sc, CudaMultiBodyEngine(sc),
+        stress_check('k3_vs_plain', sc, CudaMultiBodyEngine(sc),
                      torch_state(st, 'cuda'), torch_controls(ctl, 'cuda'),
-                     N_FIELDS, calibrated=True, blocks=nb, control=control,
-                     inputs=kind)
+                     N_FIELDS, blocks=nb, control=control, inputs=kind)
 
     res = {}
     for task in ('block_rearrange', 'block_stack'):

@@ -239,19 +239,13 @@ def _mat3vec(R, v):
                         for i in range(3)], -1)
 
 
-def substep(sc: D.MultiBodyConsts, carry, qt, ft, noise=None):
+def substep(sc: D.MultiBodyConsts, carry, qt, ft):
     """One velocity-level 2 ms substep (`pallas_multibody.py:336-852`):
     servos and gravity propose velocities, contacts generated at the CURRENT
     coordinates correct them (with frozen-arm joint coupling), then all
     coordinates integrate together. ``carry`` holds q, qd, fq, fqd and the
     bodies' (N, NB, k) pos, quat, linvel and angvel. Returns (carry,
-    ee_force).
-
-    ``noise``, a `torch.Generator`, moves every lane's impulse by -1, 0 or
-    +1 ulp in each solver iteration: the rounding that another order of
-    the per-body sums (the kernel's) makes there. The checks use it to
-    measure this version's own sensitivity to rounding
-    (tests/torch_common.py:plain_run)."""
+    ee_force)."""
     q, qd, fq, fqd, bp, bq, bv, bw = carry
     dt = D.DT_SUB
 
@@ -374,10 +368,6 @@ def substep(sc: D.MultiBodyConsts, carry, qt, ft, noise=None):
         nlt2 = torch.clamp(lt2 + dlt2, -lim, lim)
         dlt2 = nlt2 - lt2
         imp = nrm * dln[..., None] + t1 * dlt1[..., None] + t2 * dlt2[..., None]
-        if noise is not None:
-            imp = torch.nextafter(imp, imp + torch.randint(
-                -1, 2, imp.shape, generator=noise, device=imp.device
-            ).to(imp.dtype))
         # side A gains the impulse, side B loses it
         imp4 = imp[:, :, None]
         dv_ = (imp4 * on_a).sum(1) - (imp4 * on_b).sum(1)          # (N, NB, 3)

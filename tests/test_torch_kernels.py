@@ -23,7 +23,10 @@ rounding in some envs when rounding moves by one ulp (a contact test or a
 joint stop flips). Each env agrees within the tolerance (1e-4 after 2
 substeps, 2e-3 after 100) or within twice its own spread over 8 plain runs
 with 1-ulp noise in every substep (tests/torch_common.py:plain_run),
-whichever is larger.
+whichever is larger. In K3's block piles as many envs may lie beyond that,
+and as far, as a noisy plain run lies beyond the other runs' bound
+(`noise_bound`); on K3's main path an env may part by more than the
+tolerance only where the noisy runs do, and then stays within its bound.
 """
 
 import ctypes
@@ -397,7 +400,8 @@ def test_multibody_kernel_matches_plain(cuda, nb, kind, n_sub):
     block_stack's (5) scenes: EE control on the dropped blocks and on the
     squeezed pile, joint control with a wrist or elbow sphere on the
     table. Each env within its bound (`noise_bound`); no more envs beyond
-    it than a noisy plain run itself puts beyond the others' bound."""
+    it, and none further, than a noisy plain run itself lies beyond the
+    others' bound."""
     sc = D.multibody_consts(S.multi_step_scene(nb),
                             ik_workspace=kind != 'sphere')
     st, ctl = multi_inputs(nb, kind, N, seed=1)
@@ -409,13 +413,13 @@ def test_multibody_kernel_matches_plain(cuda, nb, kind, n_sub):
     ref = MP.control_step(sc, st, ctl, n_sub)
     fields = ARM_FIELDS + BODY_FIELDS
     err = env_errors(out, ref, fields)
-    bound, _, allowed = noise_bound(
+    bound, _, allowed, cap = noise_bound(
         sc, st, ctl, n_sub, ref, lambda a, b: env_errors(a, b, fields),
         1e-4 if n_sub == 2 else 2e-3)
-    bound = n(bound)
-    beyond = np.nonzero(err > bound)[0]
-    assert len(beyond) <= allowed, (beyond[:8], err[beyond[:8]],
-                                    bound[beyond[:8]], allowed)
+    share = err / n(bound)
+    beyond = np.nonzero(share > 1)[0]
+    assert len(beyond) <= allowed and share.max() <= cap, (
+        beyond[:8], share[beyond[:8]], allowed, cap)
 
 
 @pytest.mark.cuda
@@ -424,8 +428,8 @@ def test_multibody_kernel_matches_plain_on_main_path(cuda, n_sub, tol):
     """The control step's inputs at step 26 of a seeded block_rearrange
     drive (2 blocks) at 4096 envs: every env within 1e-4 after 2 substeps
     and within 2e-3 after the full 100, but where the fingers push a block
-    and the plain version's own noisy runs part by more than that (then
-    `noise_bound`)."""
+    and the plain version's own noisy runs part by more than that: there
+    the env is held to its `noise_bound`, with no env beyond it."""
     env = make_vec_env(num_envs=N, task='block_rearrange', num_block=2,
                        seed=2)
     state, _ = env.reset()
@@ -447,10 +451,9 @@ def test_multibody_kernel_matches_plain_on_main_path(cuda, n_sub, tol):
     if err.max() > tol:
         # fingers pushing a block: where the plain version's own noisy runs
         # spread beyond the flat bound, hold the env to noise_bound's
-        bound, _, allowed = noise_bound(
-            sc, state.phys, ctl, n_sub, ref,
-            lambda a, b: env_errors(a, b, fields), tol)
-        assert (err > n(bound)).sum() <= allowed
+        bound = noise_bound(sc, state.phys, ctl, n_sub, ref,
+                            lambda a, b: env_errors(a, b, fields), tol)[0]
+        assert (err <= n(bound)).all()
     assert env.core.engine.launches == 25
 
 

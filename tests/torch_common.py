@@ -283,7 +283,7 @@ def plain_run(sc, st, ctl, n_sub, noise_seed=None):
                 -1, 2, x.shape, generator=g, device=x.device).to(x.dtype))
                 for x in carry)
         if multi:
-            carry, ee = MP.substep(sc, carry, ctl.q_target, ctl.f_target, g)
+            carry, ee = MP.substep(sc, carry, ctl.q_target, ctl.f_target)
         else:
             carry, ee = EP.substep(sc, carry, ctl.q_target, ctl.f_target)
     q, qd, fq, fqd, bp, bq, bv, bw = carry
@@ -298,18 +298,23 @@ def noise_bound(sc, st, ctl, n_sub, ref, errors, tol, runs=8, factor=2.0):
     """Per-env bounds from the plain version's own sensitivity to rounding:
     ``runs`` noisy plain runs (`plain_run`), each env's spread (the largest
     ``errors(run, ref)``, a (N,) tensor) and its bound, the larger of
-    ``tol`` and ``factor`` times the spread. Also how many envs a noisy run
-    itself puts beyond the bound that the other runs set (the most over the
-    runs): in a chaotic state (a squeezed pile after 100 substeps) a run can
-    take a branch of a contact decision that none of the others takes, and
-    another rounding of the same physics, the kernel's, may too. Returns
-    (bound, spread, allowed)."""
+    ``tol`` and ``factor`` times the spread. Also how far a noisy run itself
+    lies beyond the bound that the other runs set: in a chaotic state (a
+    squeezed pile after 100 substeps) a run can take a branch of a contact
+    decision that none of the others takes, and another rounding of the
+    same physics, the kernel's, may too. ``allowed`` is the most envs one
+    run puts beyond the others' bound, ``cap`` the largest share of that
+    bound such an env reaches (1 where no run leaves it). Returns (bound,
+    spread, allowed, cap)."""
     errs = torch.stack([torch.as_tensor(errors(
         plain_run(sc, st, ctl, n_sub, seed)[0], ref)) for seed in range(runs)])
     spread = errs.max(0).values
-    allowed = 0
+    allowed, cap = 0, 1.0
     for k in range(runs):
-        others = torch.cat([errs[:k], errs[k + 1:]]).max(0).values
-        allowed = max(allowed, int((errs[k] > torch.clamp(
-            factor * others, min=tol)).sum()))
-    return torch.clamp(factor * spread, min=tol), spread, allowed
+        others = torch.clamp(factor * torch.cat([errs[:k], errs[k + 1:]])
+                             .max(0).values, min=tol)
+        out = errs[k] > others
+        if out.any():
+            allowed = max(allowed, int(out.sum()))
+            cap = max(cap, float((errs[k][out] / others[out]).max()))
+    return torch.clamp(factor * spread, min=tol), spread, allowed, cap
