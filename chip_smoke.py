@@ -10,11 +10,14 @@ main paths and checks that they went through the kernels: push
 (`make_vec_env(task='push', num_envs=4096)`, 60 steps across one auto-reset,
 then reach for 5 steps) on K1 and K2, block_rearrange with 2 blocks (4096
 envs, 60 steps across one auto-reset) and block_stack with 5 (1024 envs) on
-K1 and K3. One JSON line per check or phase; the kernels line, the card's
-name and power limit, and as the last line
-``{"ok": true, "device": {...}}``. Stops at the first failure with a non-zero
-exit and no result; exits non-zero without a CUDA device or without the
-package beside it. Imports nothing of JAX.
+K1 and K3, and the push primitives (primitive_push_assemble with
+discrete_push and primitive_push_reach with continuous_push, 1024 envs: 20
+K1 launches at 16 iterations and 20 K3 launches of 80 substeps per step) on
+K1 and K3's bodies of several geoms. One JSON line per check or phase; the
+kernels line, the card's name and power limit, and as the last line
+``{"ok": true, "device": {...}}``. Stops at the first failure with a
+non-zero exit and no result; exits non-zero without a CUDA device or without
+the package beside it. Imports nothing of JAX.
 """
 
 import json
@@ -28,6 +31,9 @@ N_ENVS = 4096
 MAIN_STEPS, TIMED_FROM = 60, 10
 # block_stack with 5 blocks runs at 1024 envs (the README's configuration)
 STACK_ENVS, STACK_STEPS, STACK_TIMED_FROM = 1024, 20, 5
+# the push primitives too; one step is 20 sub-targets of 80 substeps each
+PRIM_ENVS, PRIM_STEPS, PRIM_TIMED_FROM = 1024, 12, 2
+PRIM_SUBSTEPS, PRIM_LAUNCHES = 80, 20
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 (non-tensor)
 # operations/s; a card below 700 W runs slower than these
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -73,6 +79,18 @@ def bound_ms(n_bytes, n_ops):
     return max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops else 'operations'
 
 
+def actions(torch, env, g, shape):
+    """Seeded actions for ``env`` from generator ``g``: uniform in [-1, 1],
+    or cells of the action map (`MultiDiscrete`) for discrete_push."""
+    if env.cfg.primitive == 'discrete_push':
+        nvec = torch.tensor(env.action_space.nvec, dtype=torch.float32,
+                            device=g.device)
+        return torch.floor(torch.rand(shape + (3,), generator=g,
+                                      device=g.device) * nvec)
+    return 2 * torch.rand(shape + (env.cfg.action_dim,), generator=g,
+                          device=g.device) - 1
+
+
 def main_path_inputs(torch, port, task, at=(0, 25), seed=2, num_envs=N_ENVS,
                      **kw):
     """What K1 and the control-step kernel are given on a main path: a
@@ -87,8 +105,7 @@ def main_path_inputs(torch, port, task, at=(0, 25), seed=2, num_envs=N_ENVS,
     g = torch.Generator(device='cuda').manual_seed(seed)
     out = []
     for i in range(max(at) + 1):
-        action = 2 * torch.rand((num_envs, env.cfg.action_dim), generator=g,
-                                device='cuda') - 1
+        action = actions(torch, env, g, (num_envs,))
         if i in at:
             dec, f_target = core.step_decode_pre(state, action)
             zero = dec.phys.door_q
@@ -101,14 +118,82 @@ def main_path_inputs(torch, port, task, at=(0, 25), seed=2, num_envs=N_ENVS,
     return out
 
 
+class _Recorder:
+    """Stands in for an env's K1 or K3 wrapper during a capture drive: notes
+    each call's arguments and passes the call on."""
+
+    def __init__(self, inner):
+        self.inner, self.calls = inner, []
+
+    def solve(self, *args, **kw):
+        self.calls.append((args, kw))
+        return self.inner.solve(*args, **kw)
+
+    def control_step(self, *args, **kw):
+        self.calls.append((args, kw))
+        return self.inner.control_step(*args, **kw)
+
+
+def primitive_main_inputs(torch, port, seed=2):
+    """What K1 and K3 are given on the primitive main path: step 1 of a
+    seeded primitive_push_assemble drive (discrete_push) at PRIM_ENVS,
+    recorded call by call. Returns sub-target 1 and the sub-target whose
+    start has the most envs with a finger pad on an object (a finger-box
+    lane active), each as main_path_inputs gives its captures."""
+    from pybullet_multigoal_gym_tpu_torch.ops import engine_plain as EP
+    from pybullet_multigoal_gym_tpu_torch.ops import multibody_plain as MP
+    env = port.make_vec_env(num_envs=PRIM_ENVS, task='primitive_push_assemble',
+                            primitive='discrete_push', seed=seed)
+    core = env.core
+    state, _ = env.reset()
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    wrappers = core.ik, core.engine
+    core.ik, core.engine = _Recorder(core.ik), _Recorder(core.engine)
+    try:
+        env.step(state, actions(torch, env, g, (PRIM_ENVS,)))
+        ik_calls, engine_calls = core.ik.calls, core.engine.calls
+    finally:
+        core.ik, core.engine = wrappers
+    sc = core.scene
+    pads = [k for k, lane in enumerate(MP.lane_plan(sc))
+            if MP.lane_group(lane) == 'finger-box']
+    contact = []
+    for (phys, _), _ in engine_calls:
+        act = MP.build_lanes(sc, EP.fk_chain(phys.q, phys.fq), phys.body_pos,
+                             phys.body_quat, EP.qmat(phys.body_quat))[3]
+        contact.append(float((act[:, pads] > 0).any(1).float().mean()))
+    most = max(range(len(contact)), key=contact.__getitem__)
+    out = []
+    for k in sorted({0, most}):
+        (target,), ik_kw = ik_calls[k]
+        (phys, controls), _ = engine_calls[k]
+        out.append(dict(step=1, sub_target=k + 1, pad_contact=contact[k],
+                        target=target, q_init=ik_kw['q_init'],
+                        rest=ik_kw['rest_pose'], phys=phys, scene=sc,
+                        controls=controls))
+    emit('primitive_capture', envs=PRIM_ENVS, step=1,
+         sub_targets=[c['sub_target'] for c in out],
+         pad_contact_share=[c['pad_contact'] for c in out])
+    return out
+
+
+def primitive_name(c):
+    return 'primitive_push_assemble main path, step %d, sub-target %d' % (
+        c['step'], c['sub_target'])
+
+
 def phase_ik(captured, count_lib):
     """K1 against ops/ik.py:solve on the card: 4096 targets from the IK
-    workspace box at 8 and 40 iterations, and the main path's own inputs
-    (push and reach) at its 8. The kernel alone is timed on inputs packed
-    once (``ms``), and the wrapper's whole call beside it (``call_ms``), on
-    the main path's inputs; its operations are counted on the same inputs."""
+    workspace box at 8 and 40 iterations, the main path's own inputs
+    (push and reach) at its 8, and the primitive main path's own inputs
+    (1024 envs) at its 16. The kernel alone is timed on inputs packed once
+    (``ms``), and the wrapper's whole call beside it (``call_ms``), on push's
+    and the primitive's inputs; its operations are counted on the same
+    inputs."""
     import numpy as np
     import torch
+    from pybullet_multigoal_gym_tpu_torch.envs.shape_assemble import (
+        PRIMITIVE_IK_ITERS)
     from pybullet_multigoal_gym_tpu_torch.model import kuka_model as KM
     from pybullet_multigoal_gym_tpu_torch.ops import ik
     from pybullet_multigoal_gym_tpu_torch.ops.cuda_ik import CudaIK, pack
@@ -122,7 +207,10 @@ def phase_ik(captured, count_lib):
              ('workspace box', 40, tgt, q0, rest)]
     for task, inputs in captured.items():
         for c in inputs:
-            if c['target'].shape[0] == N_ENVS:
+            if task == 'primitive':
+                cases.append((primitive_name(c), PRIMITIVE_IK_ITERS,
+                              c['target'], c['q_init'], c['rest']))
+            elif c['target'].shape[0] == N_ENVS:
                 cases.append(('%s main path, step %d' % (task, c['step']), 8,
                               c['target'], c['q_init'], c['rest']))
     worst, kernel_ms = 0.0, {}
@@ -131,15 +219,15 @@ def phase_ik(captured, count_lib):
         err = float((w.solve(tg, q_init=q, rest_pose=r)
                      - ik.solve(tg, q_init=q, rest_pose=r, num_iters=iters)
                      ).abs().max())
-        emit('k1_vs_plain', inputs=name, iters=iters, envs=N_ENVS, tol=1e-4,
-             max_abs_err=err)
+        emit('k1_vs_plain', inputs=name, iters=iters, envs=tg.shape[0],
+             tol=1e-4, max_abs_err=err)
         if not err <= 1e-4:
             raise AssertionError('K1 (%s, %d iterations) disagrees with its '
                                  'plain version: %g' % (name, iters, err))
         worst = max(worst, err)
         # the kernel alone, on inputs packed once (back-to-back launches)
         packed = pack(tg, q_init=q, rest_pose=r)
-        out = torch.empty((7, N_ENVS), device='cuda')
+        out = torch.empty((7, tg.shape[0]), device='cuda')
         kernel_ms[name, iters] = time_ms(lambda: w.launch(packed, out), 50)
 
     # the main path's K1 call: push at step 26
@@ -156,6 +244,22 @@ def phase_ik(captured, count_lib):
                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, ops=ops)
     emit('k1_timing', inputs=name, iters=8, envs=N_ENVS, **res,
          ms_40_iterations=kernel_ms['workspace box', 40])
+
+    # the primitive's K1 call: sub-target 1 of step 1, 20 such per env step
+    c = captured['primitive'][0]
+    name = primitive_name(c)
+    tg, q, r = c['target'], c['q_init'], c['rest']
+    w = CudaIK(num_iters=PRIMITIVE_IK_ITERS)
+    ops, _ = ik_ops(count_lib, tg, q_init=q, rest_pose=r,
+                    num_iters=PRIMITIVE_IK_ITERS)
+    b_ms, b_by = bound_ms(PRIM_ENVS * (21 + 7) * 4, ops)
+    emit('k1_timing', inputs=name, iters=PRIMITIVE_IK_ITERS, envs=PRIM_ENVS,
+         launches_per_env_step=PRIM_LAUNCHES,
+         ms=kernel_ms[name, PRIMITIVE_IK_ITERS],
+         call_ms=time_ms(lambda: w.solve(tg, q_init=q, rest_pose=r), 50),
+         plain_ms=time_ms(lambda: ik.solve(tg, q_init=q, rest_pose=r,
+                                           num_iters=PRIMITIVE_IK_ITERS), 3),
+         bound_ms=b_ms, bound_by=b_by, ops=ops)
     return res
 
 
@@ -189,24 +293,31 @@ STRESS = (('push', 'ee', 'drop'), ('push', 'ee', 'contact'),
 N_NOISE = 8          # plain runs with 1-ulp noise per stress check
 SPREAD_FACTOR = 2.0  # an env may part by twice the plain version's spread
 FLAT = ((2, 1e-4), (100, 2e-3))   # substeps, and the flat bound after them
+# the primitive's control step is one sub-target's 80 substeps
+PRIM_FLAT = ((2, 1e-4), (PRIM_SUBSTEPS, 2e-3))
 
 
-def main_path_check(phase, sc, w, c, n_fields, **tag):
+def main_path_check(phase, sc, w, c, n_fields, substeps=FLAT, **tag):
     """A control-step kernel against its plain version on a main path's own
-    inputs ``c`` (main_path_inputs), after 2 and 100 substeps: every env
-    within the flat bound (FLAT). Where an env parts by more (the fingers
-    push a block, and the plain version's own noisy runs part by more too),
-    that env is held to its noise bound (tests/torch_common.py:noise_bound)
-    and none may lie beyond it. Returns the largest error."""
+    inputs ``c`` (main_path_inputs), after ``substeps``: every env within
+    the flat bound (FLAT). Where an env parts by more (a pad pushes an
+    object, or the slot rocks on the plate; the plain version's own noisy
+    runs part by more too), that env is held to its noise bound
+    (tests/torch_common.py:noise_bound) with the allowance the noisy runs
+    set (`allowance`): none beyond it where no noisy run lies beyond the
+    other runs' bound. Returns the largest error."""
     worst = 0.0
-    for n_sub, tol in FLAT:
+    inputs = 'main path, step %d' % c['step']
+    if 'sub_target' in c:
+        inputs += ', sub-target %d' % c['sub_target']
+    for n_sub, tol in substeps:
         out, ref, active, e = compare(sc, w, c['phys'], c['controls'],
                                       n_fields, n_sub)
-        noise = (noise_check(sc, c['phys'], c['controls'], n_sub, ref,
-                             n_fields, tol)[:2] + (0, 1.0)
+        noise = (allowance(sc, noise_check(sc, c['phys'], c['controls'],
+                                           n_sub, ref, n_fields, tol))
                  if e.max() > tol else None)
-        held(phase, sc, n_sub, tol, out, e, active, noise,
-             inputs='main path, step %d' % c['step'], **tag)
+        held(phase, sc, n_sub, tol, out, e, active, noise, inputs=inputs,
+             **tag)
         worst = max(worst, float(e.max()))
     return worst
 
@@ -215,21 +326,30 @@ def stress_check(phase, sc, w, st, ctl, n_fields, substeps=FLAT, **tag):
     """A control-step kernel against its plain version on a stress state
     after ``substeps``: each env within the flat bound or SPREAD_FACTOR
     times its spread over N_NOISE plain runs with 1-ulp noise
-    (tests/torch_common.py:noise_bound), whichever is larger. K2: no env
-    beyond it. K3 (block piles, where a pad and a block face lie nearly
-    parallel and the SAT axis choice is a tie): as many envs as a noisy
-    plain run itself puts beyond the other runs' bound, each within the
-    largest share of that bound such a run reaches."""
-    from pybullet_multigoal_gym_tpu_torch.ops import dynamics as D
+    (tests/torch_common.py:noise_bound), whichever is larger, with the
+    allowance the noisy runs set (`allowance`)."""
     for n_sub, tol in substeps:
         out, ref, active, e = compare(sc, w, st, ctl, n_fields, n_sub)
-        noise = noise_check(sc, st, ctl, n_sub, ref, n_fields, tol)
-        if not isinstance(sc, D.MultiBodyConsts):
-            noise = noise[:2] + (0, 1.0)
+        noise = allowance(sc, noise_check(sc, st, ctl, n_sub, ref, n_fields,
+                                          tol))
         held(phase, sc, n_sub, tol, out, e, active, noise, **tag)
         if tag.get('inputs') == 'sphere' and not active['sphere-plane'] > 0:
             raise AssertionError('the sphere state activates no sphere-plane '
                                  'lane: %s' % active)
+
+
+def allowance(sc, noise):
+    """noise_check's (bound, spread, allowed, cap) as the checks apply it.
+    K2: no env beyond its bound. K3: as many envs as a noisy plain run
+    itself puts beyond the other runs' bound, each within the largest share
+    of that bound such a run reaches, and none where no noisy run leaves
+    the others' bound. K3's scenes hold contact decisions that the last bit
+    settles: in block piles a pad and a block face lie nearly parallel and
+    the SAT axis choice is a tie; the push primitives' slot rocks on the
+    plate at rest (in the JAX package's XLA engine too) and when a rocking
+    corner lands is decided on the last bit."""
+    from pybullet_multigoal_gym_tpu_torch.ops import dynamics as D
+    return noise if isinstance(sc, D.MultiBodyConsts) else noise[:2] + (0, 1.0)
 
 
 def compare(sc, w, st, ctl, n_fields, n_sub):
@@ -365,18 +485,27 @@ def phase_multibody(kernels, captured, count_lib):
       at 1024): every env within 1e-4 after 2 substeps and within 2e-3 after
       the full 100, but where the fingers push a block and the plain
       version's own noisy runs part by more than that; there the env is
-      held to its noise bound, and none may lie beyond it
-      (`main_path_check`). ``lanes_active`` says which lane groups act.
+      held to its noise bound (`main_path_check`). ``lanes_active`` says
+      which lane groups act.
+    - The primitive main path's own inputs (primitive_push_assemble, step
+      1 at 1024 envs, the sub-target with the most pads on an object) after
+      2 and 80 substeps, by `main_path_check`: the slot rocks on the plate
+      and the noisy runs part in hundreds of envs.
     - The stress states (``K3_STRESS``: the block pile the fingers squeeze,
-      and a wrist or elbow sphere on the table under joint control): each
-      env within the flat bound or SPREAD_FACTOR times its spread over
-      N_NOISE noisy plain runs, whichever is larger; after 100 substeps of
-      the pile, a few envs take a branch of a contact decision (a pad and a
-      block face nearly parallel: the SAT axis choice) that no noisy run
-      takes, so as many envs may lie beyond their bound, and as far, as a
-      noisy run itself lies beyond the others' (`stress_check`).
+      and a wrist or elbow sphere on the table under joint control; the
+      primitive's 'press' state, tests/torch_common.py:primitive_inputs,
+      where the pads push the cube into the slot's mouth so that the
+      box-box lanes of the slot's side geoms act): each env within the flat
+      bound or SPREAD_FACTOR times its spread over N_NOISE noisy plain
+      runs, whichever is larger (`stress_check`).
 
-    Timed on both main paths' step-26 inputs: the kernel alone on inputs
+    Beyond its noise bound, on every input, an env of K3 may lie only as
+    `allowance` says: as many envs, and as far, as a noisy run itself lies
+    beyond the others' bound (a branch of a contact decision that no other
+    noisy run takes), and none where no noisy run does.
+
+    Timed on both block main paths' step-26 inputs (100 substeps) and on
+    the primitive's contact sub-target (80): the kernel alone on inputs
     packed once (``ms``) and the wrapper's whole call (``call_ms``); the
     operations are counted on the same inputs."""
     import torch
@@ -384,9 +513,10 @@ def phase_multibody(kernels, captured, count_lib):
     from pybullet_multigoal_gym_tpu_torch.ops import multibody_plain as MP
     from pybullet_multigoal_gym_tpu_torch.ops import scene as S
     from pybullet_multigoal_gym_tpu_torch.ops.cuda_multibody import (
-        CudaMultiBodyEngine, n_rows, pack)
+        CudaMultiBodyEngine, n_rows, pack, scene_key)
     from tests.kernel_ops import multibody_ops
-    from tests.torch_common import multi_inputs, torch_controls, torch_state
+    from tests.torch_common import (multi_inputs, primitive_inputs,
+                                    torch_controls, torch_state)
     worst = 0.0
     for task in ('block_rearrange', 'block_stack'):
         for c in captured[task]:
@@ -402,28 +532,45 @@ def phase_multibody(kernels, captured, count_lib):
         stress_check('k3_vs_plain', sc, CudaMultiBodyEngine(sc),
                      torch_state(st, 'cuda'), torch_controls(ctl, 'cuda'),
                      N_FIELDS, blocks=nb, control=control, inputs=kind)
+    c = captured['primitive'][-1]
+    main_path_check('k3_vs_plain', c['scene'], CudaMultiBodyEngine(c['scene']),
+                    c, N_FIELDS, substeps=PRIM_FLAT,
+                    task='primitive_push_assemble', control='ee')
+    sc = c['scene']
+    st, ctl = primitive_inputs(('slot', 'cube'), 'press', PRIM_ENVS)
+    stress_check('k3_vs_plain', sc, CudaMultiBodyEngine(sc),
+                 torch_state(st, 'cuda'), torch_controls(ctl, 'cuda'),
+                 N_FIELDS, substeps=PRIM_FLAT, task='primitive_push_assemble',
+                 control='ee', inputs='press')
 
     res = {}
-    for task in ('block_rearrange', 'block_stack'):
-        c = captured[task][-1]
+    timed = [(task, captured[task][-1], 100)
+             for task in ('block_rearrange', 'block_stack')]
+    timed.append(('primitive_push_assemble', captured['primitive'][-1],
+                  PRIM_SUBSTEPS))
+    for task, c, n_sub in timed:
         sc, st, ctl = c['scene'], c['phys'], c['controls']
         w = CudaMultiBodyEngine(sc)
         n = st.q.shape[0]
         rows, ctl_rows = pack(st, ctl)
         out = torch.empty_like(rows)
-        ms = time_ms(lambda: w.launch(rows, ctl_rows, out, 100), 10)
-        call_ms = time_ms(lambda: w.control_step(st, ctl), 10)
-        plain_ms = time_ms(lambda: MP.control_step(sc, st, ctl, 100), 1)
-        ops, _ = multibody_ops(count_lib, sc, st, ctl, 100)
+        ms = time_ms(lambda: w.launch(rows, ctl_rows, out, n_sub), 10)
+        call_ms = time_ms(lambda: w.control_step(st, ctl, n_sub), 10)
+        plain_ms = time_ms(lambda: MP.control_step(sc, st, ctl, n_sub), 1)
+        ops, _ = multibody_ops(count_lib, sc, st, ctl, n_sub)
         b_ms, b_by = bound_ms(n * (2 * n_rows(sc.nb) + 11) * 4, ops)
         res[task] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by, ops=ops)
-        emit('k3_timing', task=task, blocks=sc.nb,
-             inputs='main path, step %d' % c['step'], substeps=100, envs=n,
-             lanes=len(MP.lane_plan(sc)), **res[task],
+        mangled = 'ILi%dELi%dELj%dELi%dELy%dELi%dEE' % scene_key(sc)
+        emit('k3_timing', task=task, bodies=sc.nb, geoms=sc.ng,
+             inputs=('main path, step %d' % c['step']
+                     + (', sub-target %d' % c['sub_target']
+                        if 'sub_target' in c else '')),
+             substeps=n_sub, envs=n, lanes=len(MP.lane_plan(sc)),
+             launches_per_env_step=(PRIM_LAUNCHES if 'sub_target' in c
+                                    else 1), **res[task],
              ptxas=[p for p in kernels['multibody'].ptxas
-                    if 'ILi%dELi%dELi%dE' % (sc.nb, sc.plane_mask,
-                                             sc.geom_mask) in p['function']])
+                    if mangled in p['function']])
     res['block_rearrange']['max_abs_err'] = worst
     return res
 
@@ -466,25 +613,29 @@ def drive(torch, port, task, steps, seed, num_envs=N_ENVS,
     env = port.make_vec_env(num_envs=num_envs, task=task, seed=seed, **kw)
     state, obs = env.reset()
     g = torch.Generator(device='cuda').manual_seed(seed)
-    actions = 2 * torch.rand((steps, num_envs, env.cfg.action_dim),
-                             generator=g, device='cuda') - 1
+    acts = actions(torch, env, g, (steps, num_envs))
     dims = {k: tuple(v.shape) for k, v in obs.items()}
     done_at = []
     finite = torch.ones((), dtype=torch.bool, device='cuda')
-    env.core.ik.launches = env.core.engine.launches = 0
+    core = env.core
+    core.ik.launches = core.engine.launches = 0
+    per_step = {'ik': set(), 'engine': set()}
     torch.cuda.synchronize()
     t0 = None
     for i in range(steps):
         if i == timed_from:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-        state, obs, reward, done, info = env.step(state, actions[i])
+        before = core.ik.launches, core.engine.launches
+        state, obs, reward, done, info = env.step(state, acts[i])
+        per_step['ik'].add(core.ik.launches - before[0])
+        per_step['engine'].add(core.engine.launches - before[1])
         done_at.append(done)
         for v in obs.values():
             finite &= torch.isfinite(v).all()
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0 if t0 is not None else None
-    launches = dict(ik=env.core.ik.launches, engine=env.core.engine.launches)
+    launches = dict(ik=core.ik.launches, engine=core.engine.launches)
     done_steps = [i + 1 for i, d in enumerate(done_at) if bool(d.any())]
     all_done = [i + 1 for i, d in enumerate(done_at) if bool(d.all())]
     shapes_ok = {k: tuple(v.shape) for k, v in obs.items()} == dims
@@ -492,7 +643,10 @@ def drive(torch, port, task, steps, seed, num_envs=N_ENVS,
     return env, state, dict(task=task, **kw, envs=num_envs, steps=steps,
                             timed_steps=[timed_from + 1, steps] if elapsed
                             else None,
-                            launches=launches, done_steps=done_steps,
+                            launches=launches,
+                            launches_per_step={k: sorted(v) for k, v in
+                                               per_step.items()},
+                            done_steps=done_steps,
                             all_done_steps=all_done, obs_finite=bool(finite),
                             obs_shapes=dims, shapes_ok=shapes_ok,
                             env_steps_per_s=rate)
@@ -505,7 +659,7 @@ def plain_path_check(torch, port, task, state, env, **kw):
     from pybullet_multigoal_gym_tpu_torch import interop
     leaves = {k: v[:64] for k, v in interop.state_to_numpy(state).items()}
     g = torch.Generator().manual_seed(5)
-    action = 2 * torch.rand((64, env.cfg.action_dim), generator=g) - 1
+    action = actions(torch, env, g, (64,))
     obs = {}
     for dev in ('cuda', 'cpu'):
         e = port.make_vec_env(num_envs=64, task=task, device=dev, **kw)
@@ -513,6 +667,126 @@ def plain_path_check(torch, port, task, state, env, **kw):
         _, o, _, _, _ = e.step(s, action.to(dev))
         obs[dev] = o['observation'].cpu()
     return float((obs['cuda'] - obs['cpu']).abs().max())
+
+
+def phase_primitive_main(torch, port):
+    """The push-primitive main paths: primitive_push_assemble with
+    discrete_push at 1024 envs for PRIM_STEPS steps, timed after the first
+    PRIM_TIMED_FROM, with exactly 20 K1 and 20 K3 launches in every step;
+    its first 16 envs stepped once on the card and on the CPU from one state
+    (1600 plain substeps, `primitive_plain_check`); primitive_push_reach
+    with continuous_push for 4 steps."""
+    want = dict(ik=[PRIM_LAUNCHES], engine=[PRIM_LAUNCHES])
+    env, state, res = drive(torch, port, 'primitive_push_assemble',
+                            PRIM_STEPS, seed=0, num_envs=PRIM_ENVS,
+                            timed_from=PRIM_TIMED_FROM,
+                            primitive='discrete_push')
+    emit('primitive_path', card=card_line(), **res)
+    if not (res['obs_finite'] and res['shapes_ok']
+            and res['launches_per_step'] == want and not res['done_steps']):
+        raise AssertionError('primitive path check failed: %s' % res)
+    primitive_plain_check(torch, port, state)
+    _, _, reach = drive(torch, port, 'primitive_push_reach', 4, seed=1,
+                        num_envs=PRIM_ENVS, timed_from=1,
+                        primitive='continuous_push')
+    emit('primitive_reach_path', card=card_line(), **reach)
+    if not (reach['obs_finite'] and reach['shapes_ok']
+            and reach['launches_per_step'] == want):
+        raise AssertionError('primitive_push_reach path check failed: %s'
+                             % reach)
+    return res
+
+
+class _Noisy:
+    """Stands in for an env's K3 wrapper: each control step runs one substep
+    per launch, and before each substep every element of the state moves
+    by -1, 0 or +1 ulp (seeded), as tests/torch_common.py:plain_run's noisy
+    runs move the plain version's."""
+
+    def __init__(self, inner, seed):
+        import torch
+        self.inner = inner
+        self.g = torch.Generator(device='cuda').manual_seed(seed)
+
+    def control_step(self, phys, controls, n_substeps):
+        from tests.torch_common import nudge
+        for _ in range(n_substeps):
+            phys = phys._replace(**{f: nudge(getattr(phys, f), self.g)
+                                    for f in CARRY})
+            phys = self.inner.control_step(phys, controls, 1)
+        return phys
+
+
+# the state fields a substep carries (tests/torch_common.py:plain_run)
+CARRY = ('q', 'qd', 'fq', 'fqd', 'body_pos', 'body_quat', 'body_linvel',
+         'body_angvel')
+
+
+def obs_poses(torch, obs):
+    """The primitive observation's object poses, each ZYZ Euler triplet
+    replaced by its rotation (a unit quaternion, w >= 0): the triplet is
+    singular for a flat object (beta 0), where alpha and gamma are each
+    arbitrary and only their sum is defined, so a last-bit tilt turns them
+    by up to 2 pi."""
+    from pybullet_multigoal_gym_tpu_torch.maths import quat as Q
+    o = obs.reshape(obs.shape[0], -1, 6)
+    q = Q.euler_zyz_to_quat(o[..., 3:])
+    q = torch.where(q[..., :1] < 0, -q, q)
+    return torch.cat([o[..., :3], q], -1).flatten(1)
+
+
+def primitive_plain_check(torch, port, state, envs=16, tol=5e-3):
+    """The kernels' path against the plain path over one primitive step:
+    the first ``envs`` envs of ``state`` stepped once on the card and on the
+    CPU from one state, their object poses compared (`obs_poses`). Every
+    env within ``tol``; where one parts by more (a pad pushes an object, and
+    1600 substeps of contact decisions part), it is held to its noise
+    bound: the larger of ``tol`` and SPREAD_FACTOR times its spread over
+    N_NOISE kernel paths with 1-ulp noise in every substep (`_Noisy`), with
+    K3's allowance (`allowance`)."""
+    from pybullet_multigoal_gym_tpu_torch import interop
+    from tests.torch_common import bound_from_runs
+    leaves = {k: v[:envs] for k, v in interop.state_to_numpy(state).items()}
+    g = torch.Generator().manual_seed(5)
+    poses = {}
+    for dev in ('cuda', 'cpu'):
+        e = port.make_vec_env(num_envs=envs, task='primitive_push_assemble',
+                              primitive='discrete_push', device=dev)
+        if dev == 'cuda':
+            action = actions(torch, e, g, (envs,))
+            kernel_env = e
+        s = interop.state_from_numpy(leaves, device=dev)
+        _, o, _, _, _ = e.step(s, action.to(dev))
+        poses[dev] = obs_poses(torch, o['observation']).cpu()
+    err = (poses['cuda'] - poses['cpu']).abs().max(1).values
+    res = dict(task='primitive_push_assemble', envs=envs, steps=1,
+               compared='object positions and rotations', tol=tol,
+               max_abs_err=float(err.max()),
+               envs_beyond_tol=int((err > tol).sum()))
+    if err.max() > tol:
+        engine = kernel_env.core.engine
+        runs = []
+        for seed in range(N_NOISE):
+            kernel_env.core.engine = _Noisy(engine, seed)
+            _, o, _, _, _ = kernel_env.step(
+                interop.state_from_numpy(leaves, device='cuda'),
+                action.to('cuda'))
+            runs.append((obs_poses(torch, o['observation']).cpu()
+                         - poses['cuda']).abs().max(1).values)
+        kernel_env.core.engine = engine
+        bound, spread, allowed, cap = allowance(
+            kernel_env.core.scene,
+            bound_from_runs(torch.stack(runs), tol, SPREAD_FACTOR))
+        share = err / bound
+        res.update(noise_max_spread=float(spread.max()),
+                   envs_beyond_allowed=allowed, share_allowed=cap,
+                   max_share_of_env_bound=float(share.max()),
+                   envs_beyond_env_bound=int((share > 1).sum()))
+        if int((share > 1).sum()) > allowed or share.max() > cap:
+            emit('primitive_vs_plain', **res)
+            raise AssertionError('primitive_push_assemble: the kernel path '
+                                 'disagrees with the plain path: %s' % res)
+    emit('primitive_vs_plain', **res)
 
 
 def phase_main(torch, port):
@@ -581,11 +855,13 @@ def main():
     captured['block_stack'] = main_path_inputs(
         torch, port, 'block_stack', at=(25,), num_envs=STACK_ENVS,
         num_block=5)
+    captured['primitive'] = primitive_main_inputs(torch, port)
     ik_res = phase_ik(captured, count_lib)
     eng_res = phase_engine(kernels, captured, count_lib)
     main_res = phase_main(torch, port)
     mb_res = phase_multibody(kernels, captured, count_lib)
     multi_res, _ = phase_multi_main(torch, port)
+    phase_primitive_main(torch, port)
 
     launches = main_res['launches']
     k1, k2, k3 = ik_res, eng_res['push'], mb_res['block_rearrange']

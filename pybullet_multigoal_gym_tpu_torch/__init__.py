@@ -3,9 +3,9 @@
 
 `make_vec_env(num_envs=..., task=...)` returns the batched env on the card.
 Its step runs hand-written CUDA kernels (`csrc/ik.cu`, and `csrc/engine.cu`
-or `csrc/multibody.cu` for the single- or multi-step family), built with
-nvcc at first use; on the CPU (``device='cpu'``) their plain PyTorch
-versions run instead. This package imports neither JAX nor the JAX
+for the single-step family or `csrc/multibody.cu` for the multi-step and
+push-primitive families), built with nvcc at first use; on the CPU
+(``device='cpu'``) their plain PyTorch versions run instead. This package imports neither JAX nor the JAX
 package.
 
 Strict float32 everywhere: TF32 is off for matmuls and cuDNN, as the JAX

@@ -4,24 +4,30 @@
 //
 // Replaces pybullet_multigoal_gym_tpu/ops/pallas_multibody.py:_build_kernel
 // (launched through PallasMultiBodyEngine.control_step) for scenes of free
-// single-box bodies with the parallel-jaw gripper: block_stack and
-// block_rearrange with 1-5 blocks. Same physics as ops/multibody_plain.py,
-// the plain PyTorch version it is checked against, and the same lane order:
-// per body the plane (4) and both fingers (2 x 9 SAT); per pair of bodies a
-// SAT manifold (9) and the edge-edge candidate; the finger pads on the plane
-// (2 x 4); the arm-sphere lanes that ops/lane_cull.py keeps. The solver is
-// K2's (engine.cu) with a lane's two sides made general: each side is a
-// body, a finger (riding on the arm), an arm sphere or the world.
+// bodies made of box geoms of any size, with the parallel-jaw gripper:
+// block_stack and block_rearrange with 1-5 blocks, and the push-primitive
+// tasks (a slot of three boxes and a cube, or a rectangle). Same physics as
+// ops/multibody_plain.py, the plain PyTorch version it is checked against,
+// and the same lane order: per body, per geom of it, the plane (4) and both
+// fingers (2 x 9 SAT); per pair of bodies, per pair of their geoms, a SAT
+// manifold (9) and the edge-edge candidate; the finger pads on the plane
+// (2 x 4); the arm-sphere lanes that ops/lane_cull.py keeps, per geom. A
+// geom's centre is its body's position plus R times its offset; every lane
+// of a geom acts on its body. The solver is K2's (engine.cu) with a lane's
+// two sides made general: each side is a body, a finger (riding on the
+// arm), an arm sphere or the world.
 //
 // Design. As in K2 the state stays on chip for the whole control step, read
-// once and written once as SoA (rows, n) arrays. The scene is a template
-// (number of bodies; which arm spheres keep a plane / a body lane), so the
-// lane plan is static. A scene holds up to 260 lanes, most of them inactive
-// in any substep (bodies apart, fingers away): the lane builders keep only
-// the active lanes, in plan order, so the solver's arrays (about 35 words a
-// lane, in per-thread local memory) are touched only as deep as the contacts
-// of this substep reach, and every sum runs over the same lanes in the same
-// order as the dense plan (an inactive lane adds exact zeros).
+// once and written once as SoA (rows, n) arrays. The scene's structure is a
+// template (bodies, geoms, each geom's body, which arm spheres keep a plane
+// lane and a lane on each geom), so the lane plan is static; the geoms'
+// sizes and offsets come with the parameters. A scene holds up to 260
+// lanes, most of them inactive in any substep (bodies apart, fingers away):
+// the lane builders keep only the active lanes, in plan order, so the
+// solver's arrays (about 35 words a lane, in per-thread local memory) are
+// touched only as deep as the contacts of this substep reach, and every sum
+// runs over the same lanes in the same order as the dense plan (an inactive
+// lane adds exact zeros).
 //
 // Bound: operations (tests/kernels_count.cpp counts them), against
 // (2 x (18 + 13 NB + 5) + 11) floats of traffic per environment and step.
@@ -30,16 +36,26 @@
 
 #include "lanes.cuh"
 
+// the scene-structure helpers below serve the host's constant expressions
+// and the device code alike
+#ifdef __CUDACC__
+#define KHD __host__ __device__
+#else
+#define KHD
+#endif
+
 namespace kin {
 namespace mb {
 
 // Scene parameters, in the order of ops/cuda_multibody.py:scene_params:
-// global values, then per body (half 3, inverse mass, inverse inertia 3,
-// friction vs the plane, the fingers, the arm spheres), then the pair
-// frictions (NB x NB, row-major).
+// global values, then per body (inverse mass, inverse inertia 3, friction
+// vs the plane, the fingers, the arm spheres), then the pair frictions (NB
+// x NB, row-major), then the geom table (per geom: half extents 3, offset
+// in the body frame 3).
 enum { P_PLANE_Z, P_ERP_DT, P_SLOP, P_MU_FPLANE, P_MU_SPLANE, P_BODY };
-enum { B_HX, B_HY, B_HZ, B_INV_MASS, B_IIX, B_IIY, B_IIZ, B_MU_PLANE,
-       B_MU_FINGER, B_MU_SPHERE, B_N };
+enum { B_INV_MASS, B_IIX, B_IIY, B_IIZ, B_MU_PLANE, B_MU_FINGER, B_MU_SPHERE,
+       B_N };
+enum { G_HX, G_HY, G_HZ, G_OX, G_OY, G_OZ, G_N };
 
 // state rows: q 7, qd 7, fq 2, fqd 2, then per body pos 3, quat 4, linvel 3,
 // angvel 3, then the door q and qd (passed through), EE force 3; controls:
@@ -47,18 +63,63 @@ enum { B_HX, B_HY, B_HZ, B_INV_MASS, B_IIX, B_IIY, B_IIZ, B_MU_PLANE,
 enum { R_Q = 0, R_QD = 7, R_FQ = 14, R_FQD = 16, R_BODY = 18 };
 enum { C_QT = 0, C_FT = 7, N_CTRL = 11 };
 
-constexpr int popc7(int m) {
+KHD constexpr int popc7(int m) {
     return (m & 1) + (m >> 1 & 1) + (m >> 2 & 1) + (m >> 3 & 1) +
            (m >> 4 & 1) + (m >> 5 & 1) + (m >> 6 & 1);
 }
 
-template <int NB, int PLANE_MASK, int GEOM_MASK>
+// The scene's structure, packed into integers: geom g's body in bits
+// 4g..4g+3 of GB, the arm spheres that keep a lane on geom g in bits
+// 7g..7g+6 of GM (bit sp: sphere sp), and in bit g of OM whether geom g
+// sits off its body's origin.
+KHD constexpr int geom_body(unsigned gb, int g) { return (gb >> (4 * g)) & 15; }
+KHD constexpr int geom_mask(unsigned long long gm, int g) {
+    return (int)((gm >> (7 * g)) & 0x7f);
+}
+
+// Lanes in the plan: per geom plane 4 + fingers 2 x 9; per geom pair of
+// two bodies 10; finger pads 2 x 4; the kept sphere lanes.
+constexpr int lane_count(int ng, unsigned gb, int plane_mask,
+                         unsigned long long gm) {
+    int l = ng * 22 + 8 + popc7(plane_mask);
+    for (int g = 0; g < ng; ++g) {
+        l += popc7(geom_mask(gm, g));
+        for (int g2 = g + 1; g2 < ng; ++g2)
+            if (geom_body(gb, g) != geom_body(gb, g2)) l += 10;
+    }
+    return l;
+}
+
+// Whether the geoms come body by body (each body's geoms together, bodies in
+// order), and no body of three or more has several geoms: then looping over
+// geoms, and over geom pairs g < g2 of two bodies, visits them in the lane
+// plan's order (per body, per pair of bodies).
+constexpr bool plan_order_by_geom(int nb, int ng, unsigned gb) {
+    bool several = false;
+    for (int g = 1; g < ng; ++g) {
+        if (geom_body(gb, g) < geom_body(gb, g - 1)) return false;
+        several = several || geom_body(gb, g) == geom_body(gb, g - 1);
+    }
+    return nb < 3 || !several;
+}
+
+// The spheres that keep a lane on some geom.
+constexpr int any_geom_mask(int ng, unsigned long long gm) {
+    int m = 0;
+    for (int g = 0; g < ng; ++g) m |= geom_mask(gm, g);
+    return m;
+}
+
+template <int NB, int NG, unsigned GB, int PLANE_MASK, unsigned long long GM,
+          int OM>
 struct Plan {
     static constexpr int ROWS = R_BODY + 13 * NB + 5;
     static constexpr int R_DOOR = R_BODY + 13 * NB, R_EE = R_DOOR + 2;
-    // per body plane 4 + fingers 2 x 9; pairs 10; finger pads 2 x 4; spheres
-    static constexpr int L = NB * 22 + NB * (NB - 1) / 2 * 10 + 8 +
-                             popc7(PLANE_MASK) + NB * popc7(GEOM_MASK);
+    static constexpr int L = lane_count(NG, GB, PLANE_MASK, GM);
+    static constexpr int ANY_GEOM_MASK = any_geom_mask(NG, GM);
+    static_assert(plan_order_by_geom(NB, NG, GB),
+                  "the kernel visits geoms in geom order: see "
+                  "plan_order_by_geom");
 };
 
 // A lane's sides and static solver metadata (pallas_multibody.py:68-107):
@@ -98,25 +159,23 @@ struct Lanes {
 };
 
 // One environment, n_sub substeps.
-template <int NB, int PLANE_MASK, int GEOM_MASK>
+template <int NB, int NG, unsigned GB, int PLANE_MASK, unsigned long long GM,
+          int OM>
 KDEV void multibody_env(const float* __restrict__ st,
                         const float* __restrict__ ctl,
                         const float* __restrict__ prm, float* __restrict__ out,
                         int n, int i, int n_sub, int iters) {
-    using P = Plan<NB, PLANE_MASK, GEOM_MASK>;
+    using P = Plan<NB, NG, GB, PLANE_MASK, GM, OM>;
     constexpr int L = P::L;
     const float plane_z = prm[P_PLANE_Z], erp_dt = prm[P_ERP_DT];
     const float slop = prm[P_SLOP];
     const float mu_fplane = prm[P_MU_FPLANE], mu_splane = prm[P_MU_SPLANE];
     const float fhalf[3] = {FINGER_HALF[0], FINGER_HALF[1], FINGER_HALF[2]};
-    float half[NB][3], inv_mass[NB], inv_I[NB][3], mu_plane[NB],
-        mu_finger[NB], mu_sphere[NB], mu_pair[NB][NB];
+    float inv_mass[NB], inv_I[NB][3], mu_plane[NB], mu_finger[NB],
+        mu_sphere[NB], mu_pair[NB][NB];
     for (int b = 0; b < NB; ++b) {
         const float* pb = prm + P_BODY + B_N * b;
-        for (int k = 0; k < 3; ++k) {
-            half[b][k] = pb[B_HX + k];
-            inv_I[b][k] = pb[B_IIX + k];
-        }
+        for (int k = 0; k < 3; ++k) inv_I[b][k] = pb[B_IIX + k];
         inv_mass[b] = pb[B_INV_MASS];
         mu_plane[b] = pb[B_MU_PLANE];
         mu_finger[b] = pb[B_MU_FINGER];
@@ -124,6 +183,12 @@ KDEV void multibody_env(const float* __restrict__ st,
         for (int b2 = 0; b2 < NB; ++b2)
             mu_pair[b][b2] = prm[P_BODY + B_N * NB + NB * b + b2];
     }
+    // the geom table: the half extents held, the offsets of the geoms off
+    // their body's origin read where a centre is needed
+    const float* geoms = prm + P_BODY + (B_N + NB) * NB;
+    float half[NG][3];
+    for (int g = 0; g < NG; ++g)
+        for (int k = 0; k < 3; ++k) half[g][k] = geoms[G_N * g + G_HX + k];
 
     float q[7], qd[7], qt[7], fq[2], fqd[2], ft[2];
 #pragma unroll
@@ -151,6 +216,14 @@ KDEV void multibody_env(const float* __restrict__ st,
 
     Lanes<L> ls;
     M3 R[NB], Iw[NB];
+    // geom g's centre (of body b) at the current coordinates: a geom at its
+    // body's origin takes the body's position, as pallas_multibody.py:393-397
+    // does
+    auto centre = [&](int g, int b) {
+        if (!((OM >> g) & 1)) return bp[b];
+        const float* pg = geoms + G_N * g;
+        return bp[b] + mat3vec(R[b], V3{pg[G_OX], pg[G_OY], pg[G_OZ]});
+    };
     V3 bv_[NB], bw_[NB], dv[NB], dw[NB];
 
 #pragma unroll 1
@@ -198,10 +271,12 @@ KDEV void multibody_env(const float* __restrict__ st,
         // only the active ones are kept
         ls.count = 0;
 #pragma unroll 1
-        for (int b = 0; b < NB; ++b) {
+        for (int g = 0; g < NG; ++g) {
+            const int b = geom_body(GB, g);
+            const V3 c = centre(g, b);
             const Meta mp = meta(b, -1, -1, -1, -1, false, false, 0.0f, 0.0f,
                                  mu_plane[b]);
-            box_plane_lanes(bp[b], R[b], half[b], plane_z,
+            box_plane_lanes(c, R[b], half[g], plane_z,
                             [&](V3 p, V3 nl, float pen, float act) {
                                 ls.add(p, nl, pen, act, mp);
                             });
@@ -209,25 +284,31 @@ KDEV void multibody_env(const float* __restrict__ st,
             for (int f = 0; f < 2; ++f) {
                 const Meta mf = meta(b, -1, -1, f, 6, false, false, -1.0f,
                                      -1.0f, mu_finger[b]);
-                sat_box_box_lanes(bp[b], R[b], half[b], fpos[f], Rb7, fhalf,
+                sat_box_box_lanes(c, R[b], half[g], fpos[f], Rb7, fhalf,
                                   [&](V3 p, V3 nl, float pen, float act) {
                                       ls.add(p, nl, pen, act, mf);
                                   });
             }
         }
 #pragma unroll 1
-        for (int b = 0; b < NB; ++b)
+        for (int g = 0; g < NG; ++g) {
+            const int b = geom_body(GB, g);
+            const V3 ca = centre(g, b);
 #pragma unroll 1
-            for (int b2 = b + 1; b2 < NB; ++b2) {
+            for (int g2 = g + 1; g2 < NG; ++g2) {
+                const int b2 = geom_body(GB, g2);
+                if (b2 == b) continue;
                 const Meta mb = meta(b, b2, -1, -1, -1, false, false, 0.0f,
                                      0.0f, mu_pair[b][b2]);
                 auto emit = [&](V3 p, V3 nl, float pen, float act) {
                     ls.add(p, nl, pen, act, mb);
                 };
-                sat_box_box_lanes(bp[b], R[b], half[b], bp[b2], R[b2],
-                                  half[b2], emit);
-                edge_lane(bp[b], R[b], half[b], bp[b2], R[b2], half[b2], emit);
+                const V3 cb = centre(g2, b2);
+                sat_box_box_lanes(ca, R[b], half[g], cb, R[b2], half[g2],
+                                  emit);
+                edge_lane(ca, R[b], half[g], cb, R[b2], half[g2], emit);
             }
+        }
 #pragma unroll 1
         for (int f = 0; f < 2; ++f) {
             const Meta mf = meta(-1, -1, f, -1, 6, false, true, 1.0f, 1.0f,
@@ -240,7 +321,7 @@ KDEV void multibody_env(const float* __restrict__ st,
 #pragma unroll
         for (int sp = 0; sp < 7; ++sp) {
             const bool keep_plane = (PLANE_MASK >> sp) & 1;
-            const bool keep_body = (GEOM_MASK >> sp) & 1;
+            const bool keep_body = (P::ANY_GEOM_MASK >> sp) & 1;
             if (!keep_plane && !keep_body) continue;
             const int li = SPH_LINK[sp];
             const float rad = SPH_R[sp];
@@ -256,10 +337,12 @@ KDEV void multibody_env(const float* __restrict__ st,
             }
             if (keep_body) {
 #pragma unroll 1
-                for (int b = 0; b < NB; ++b) {
+                for (int g = 0; g < NG; ++g) {
+                    if (!((geom_mask(GM, g) >> sp) & 1)) continue;
+                    const int b = geom_body(GB, g);
                     const Meta ms = meta(-1, b, -1, -1, li, true, true, 1.0f,
                                          es, mu_sphere[b]);
-                    sphere_box_lane(c, rad, bp[b], R[b], half[b],
+                    sphere_box_lane(c, rad, centre(g, b), R[b], half[g],
                                     [&](V3 p, V3 nl, float pen, float act) {
                                         ls.add(p, nl, pen, act, ms);
                                     });
@@ -499,40 +582,52 @@ KDEV void multibody_env(const float* __restrict__ st,
 }  // namespace mb
 }  // namespace kin
 
-// The scenes this library holds, as (bodies, plane mask, body mask): the
-// multi-step scenes of 1-5 blocks without the chest, with the arm-sphere
-// lanes of end-effector control (ops/lane_cull.py) and with every sphere
-// lane (joint control).
+// The scenes this library holds, as (bodies, geoms, geom bodies, plane
+// mask, geom masks, offset geoms), packed as Plan says: the multi-step scenes of 1-5
+// blocks without the chest, with the arm-sphere lanes of end-effector
+// control (ops/lane_cull.py) and with every sphere lane (joint control);
+// then the push-primitive scenes, the slot (three geoms) and the cube
+// under both controls, and the rectangle under end-effector control (under
+// joint control it is the 1-block instance, its size a parameter).
 #define MULTIBODY_SCENES(X)                                                 \
-    X(1, 0x40, 0x60) X(2, 0x40, 0x60) X(3, 0x40, 0x70) X(4, 0x40, 0x70)     \
-    X(5, 0x40, 0x78) X(1, 0x7f, 0x7f) X(2, 0x7f, 0x7f) X(3, 0x7f, 0x7f)     \
-    X(4, 0x7f, 0x7f) X(5, 0x7f, 0x7f)
+    X(1, 1, 0x0, 0x40, 0x60, 0x0) X(2, 2, 0x10, 0x40, 0x3060, 0x0)          \
+    X(3, 3, 0x210, 0x40, 0x1c3870, 0x0) X(4, 4, 0x3210, 0x40, 0xe1c3870, 0x0) \
+    X(5, 5, 0x43210, 0x40, 0x78f1e3c78, 0x0)                                \
+    X(1, 1, 0x0, 0x7f, 0x7f, 0x0) X(2, 2, 0x10, 0x7f, 0x3fff, 0x0)           \
+    X(3, 3, 0x210, 0x7f, 0x1fffff, 0x0) X(4, 4, 0x3210, 0x7f, 0xfffffff, 0x0) \
+    X(5, 5, 0x43210, 0x7f, 0x7ffffffff, 0x0)                                \
+    X(2, 4, 0x1000, 0x7c, 0xfffffff, 0x6)                                   \
+    X(2, 4, 0x1000, 0x7f, 0xfffffff, 0x6) X(1, 1, 0x0, 0x7c, 0x7f, 0x0)
 
 #ifdef __CUDACC__
-template <int NB, int PLANE_MASK, int GEOM_MASK>
+template <int NB, int NG, unsigned GB, int PLANE_MASK, unsigned long long GM,
+          int OM>
 __global__ void __launch_bounds__(32)
 multibody_kernel(const float* __restrict__ st, const float* __restrict__ ctl,
                  const float* __restrict__ prm, float* __restrict__ out, int n,
                  int n_sub, int iters) {
     int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i < n)
-        kin::mb::multibody_env<NB, PLANE_MASK, GEOM_MASK>(st, ctl, prm, out, n,
-                                                          i, n_sub, iters);
+        kin::mb::multibody_env<NB, NG, GB, PLANE_MASK, GM, OM>(
+            st, ctl, prm, out, n, i, n_sub, iters);
 }
 
 // Launch the scene's kernel on `stream`. Returns cudaErrorInvalidValue for a
 // scene this library does not hold, else cudaGetLastError() after the launch.
-extern "C" int multibody_launch(int nb, int plane_mask, int geom_mask,
-                                const float* st, const float* ctl,
+extern "C" int multibody_launch(int nb, int ng, unsigned geom_bodies,
+                                int plane_mask, unsigned long long geom_masks,
+                                int offset_geoms, const float* st,
+                                const float* ctl,
                                 const float* prm, float* out, int n, int n_sub,
                                 int iters, void* stream) {
     if (n == 0) return 0;
     dim3 grid((n + 31) / 32), block(32);
     cudaStream_t s = (cudaStream_t)stream;
-#define MULTIBODY_CASE(NB, PM, GM)                                          \
-    if (nb == NB && plane_mask == PM && geom_mask == GM) {                  \
-        multibody_kernel<NB, PM, GM><<<grid, block, 0, s>>>(                \
-            st, ctl, prm, out, n, n_sub, iters);                            \
+#define MULTIBODY_CASE(NB, NG, GB, PM, GM, OM)                              \
+    if (nb == NB && ng == NG && geom_bodies == GB && plane_mask == PM &&    \
+        geom_masks == GM##ULL && offset_geoms == OM) {                      \
+        multibody_kernel<NB, NG, GB, PM, GM##ULL, OM>                       \
+            <<<grid, block, 0, s>>>(st, ctl, prm, out, n, n_sub, iters);    \
         return (int)cudaGetLastError();                                     \
     }
     MULTIBODY_SCENES(MULTIBODY_CASE)

@@ -80,11 +80,13 @@ class KukaEnvBase:
         self._tip_init = t(tip_init)
         self._ee_lower, self._ee_upper = t(self.ee_lower), t(self.ee_upper)
 
-    def _reset_phys(self, n, body_pos):
+    def _reset_phys(self, n, body_pos, body_quat=None):
         """Resting physics for n envs: the rest pose, the fingers at the
-        joint limit (closed, as the reference resets them), the bodies
-        upright at ``body_pos`` (n, NB, 3)."""
+        joint limit (closed, as the reference resets them), the bodies at
+        ``body_pos`` (n, NB, 3), upright or turned to ``body_quat`` (n, NB,
+        4)."""
         return D.init_state(n, self.nb, q=self._rest, body_pos=body_pos,
+                            body_quat=body_quat,
                             fq=self.gripper_abs_joint_limit,
                             device=self.device)
 

@@ -4,17 +4,20 @@ device, with TimeLimit and auto-reset.
 Counterpart of `pybullet_multigoal_gym_tpu/envs/vec_env.py`. A step runs
 decode -> IK (kernel K1) -> control step (kernel K2 for the single-step
 family, K3 for the multi-step family) -> observation and reward ->
-TimeLimit. ``done`` comes only from the TimeLimit, as in the
-reference, where ``env.step`` always returns ``done=False`` and gym's
-``TimeLimit`` wrapper truncates, so all episodes of a batch run in lockstep:
-the reset branch is decided from the state's host step count and never
-waits for the device.
+TimeLimit; in the push-primitive family one step is a whole primitive, 20
+pairs of K1 and K3 launches (`envs/shape_assemble.py`). ``done`` comes only
+from the TimeLimit, as in the reference, where ``env.step`` always returns
+``done=False`` and gym's ``TimeLimit`` wrapper truncates, so all episodes of
+a batch run in lockstep: the reset branch is decided from the state's host
+step count and never waits for the device.
 """
 
 import torch
 
 from pybullet_multigoal_gym_tpu_torch.config import EnvConfig, env_id
 from pybullet_multigoal_gym_tpu_torch.envs.multi_step import KukaMultiBlockEnv
+from pybullet_multigoal_gym_tpu_torch.envs.shape_assemble import (
+    KukaPrimitiveEnv)
 from pybullet_multigoal_gym_tpu_torch.envs.single_step import KukaSingleStepEnv
 from pybullet_multigoal_gym_tpu_torch.ops import dynamics as D
 from pybullet_multigoal_gym_tpu_torch.utils import spaces
@@ -27,6 +30,8 @@ def _make_core(cfg: EnvConfig, device):
         return KukaSingleStepEnv(cfg, device)
     if cfg.family == 'multi_step':
         return KukaMultiBlockEnv(cfg, device)
+    if cfg.family == 'shape_assemble':
+        return KukaPrimitiveEnv(cfg, device)
     raise NotImplementedError('family %r comes with a later slice of the '
                               'port' % cfg.family)
 
@@ -83,15 +88,21 @@ class VecMGEnv:
         reward and info are those of the last step and the returned state
         is a fresh reset."""
         core = self.core
-        state, f_target = core.step_decode_pre(state, action)
-        q_target = core.arm_targets(state)
-        # the chest door's hold-open motor (zero without a chest)
-        door_target = torch.full_like(
-            state.phys.door_q,
-            self.cfg.chest_door_opened_state if self.cfg.has_chest else 0.0)
-        phys = core.engine.control_step(state.phys, D.Controls(
-            q_target=q_target, f_target=f_target,
-            door_motor_on=state.door_hold_open, door_target=door_target))
+        if self.cfg.primitive is not None:
+            # JAX `vec_env.py:175-181`
+            phys = core.execute_primitive(
+                state.phys, core.step_decode_waypoints(action))
+        else:
+            state, f_target = core.step_decode_pre(state, action)
+            q_target = core.arm_targets(state)
+            # the chest door's hold-open motor (zero without a chest)
+            door_target = torch.full_like(
+                state.phys.door_q,
+                self.cfg.chest_door_opened_state if self.cfg.has_chest
+                else 0.0)
+            phys = core.engine.control_step(state.phys, D.Controls(
+                q_target=q_target, f_target=f_target,
+                door_motor_on=state.door_hold_open, door_target=door_target))
         state = state._replace(phys=phys, steps=state.steps + 1,
                                host_steps=state.host_steps + 1)
         state, obs, reward, achieved = core.step_finish(state)
@@ -103,6 +114,10 @@ class VecMGEnv:
 
     @property
     def action_space(self):
+        if self.cfg.primitive == 'discrete_push':
+            # MultiDiscrete([20, W, H]) (kuka.py:89-97)
+            return spaces.MultiDiscrete((20, self.core.action_map_width,
+                                         self.core.action_map_height))
         return spaces.Box.unit(self.cfg.action_dim)
 
     def observation_space(self, obs):

@@ -3,21 +3,22 @@
 
 Replaces `pybullet_multigoal_gym_tpu/ops/pallas_multibody.py:_build_kernel`
 (launched through `PallasMultiBodyEngine.control_step`) for scenes of free
-single-box bodies with the parallel-jaw gripper: block_stack and
-block_rearrange with 1-5 blocks. Its plain version is
+bodies made of box geoms, with the parallel-jaw gripper: block_stack and
+block_rearrange with 1-5 blocks, and the push-primitive tasks. Its plain
+version is
 `ops/multibody_plain.py:control_step`: the wrapper runs that for tensors on
 the CPU and launches the kernel for tensors on a CUDA device, and raises for
 any other device. `D.multibody_consts` raises for the scenes later slices
-bring (static walls, the chest door, pinned bodies, several geoms per body,
-cylinders).
+bring (static walls, the chest door, pinned bodies, cylinders).
 
 One launch runs all ``n_substeps`` substeps with the state held on chip: the
 state is read once and written once, as (18 + 13 NB + 5, N) SoA rows in the
 order of `pallas_multibody.py:311-315` (q 7, qd 7, fq 2, fqd 2, per body pos
 3, quat 4, linvel 3, angvel 3, door q and qd, EE force 3), and the controls
 as (11, N) rows (q target 7, finger target 2, door motor on, door target).
-The scene's static constants go in a small parameter vector; which lanes
-exist is a template of the kernel, picked by the scene.
+The scene's static constants, the geom table's sizes and offsets among
+them, go in a small parameter vector; which lanes exist is a template of
+the kernel, picked by the scene's structure (`scene_key`).
 """
 
 import torch
@@ -36,14 +37,28 @@ def n_rows(nb):
 
 def scene_params(sc: D.MultiBodyConsts):
     """The kernel's parameter vector, in the order of `multibody.cu`'s
-    ``P_*`` and ``B_*`` enums."""
+    ``P_*``, ``B_*`` and ``G_*`` enums."""
     prm = [sc.plane_z, sc.erp / D.DT_SUB, sc.slop, sc.mu_finger_plane,
            sc.mu_sphere_plane]
     for b in range(sc.nb):
-        prm += list(sc.half[b]) + [sc.inv_mass[b]] + list(sc.inv_inertia[b])
+        prm += [sc.inv_mass[b]] + list(sc.inv_inertia[b])
         prm += [sc.mu_plane(b), sc.mu_finger(b), sc.mu_sphere(b)]
     prm += [sc.mu_pair(b, b2) for b in range(sc.nb) for b2 in range(sc.nb)]
+    for g in range(sc.ng):
+        prm += list(sc.geom_half[g]) + list(sc.geom_pos[g])
     return prm
+
+
+def scene_key(sc: D.MultiBodyConsts):
+    """The scene's structure as `multibody.cu` picks its kernel instance
+    (one of `MULTIBODY_SCENES`): bodies, geoms, each geom's body (4 bits a
+    geom), the plane mask, each geom's sphere mask (7 bits a geom) and the
+    geoms off their body's origin (a bit each)."""
+    return (sc.nb, sc.ng,
+            sum(b << 4 * g for g, b in enumerate(sc.geom_body)),
+            sc.plane_mask,
+            sum(m << 7 * g for g, m in enumerate(sc.geom_mask)),
+            sum(1 << g for g, p in enumerate(sc.geom_pos) if any(p)))
 
 
 def pack(state: D.PhysicsState, controls: D.Controls):
@@ -128,11 +143,10 @@ class CudaMultiBodyEngine:
                                device=device)
             self._params[device] = prm
         kern = _build.load('multibody')
-        sc = self.sc
         stream = torch.cuda.current_stream(device).cuda_stream
         with torch.cuda.device(device):
-            rc = kern.fn(sc.nb, sc.plane_mask, sc.geom_mask, st.data_ptr(),
-                         ctl.data_ptr(), prm.data_ptr(), out.data_ptr(), n,
-                         int(n_substeps), sc.solver_iters, stream)
+            rc = kern.fn(*scene_key(self.sc), st.data_ptr(), ctl.data_ptr(),
+                         prm.data_ptr(), out.data_ptr(), n, int(n_substeps),
+                         self.sc.solver_iters, stream)
         _build.check(rc, 'multibody')
         self.launches += 1

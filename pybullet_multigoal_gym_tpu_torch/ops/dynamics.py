@@ -5,7 +5,7 @@ Counterpart of the first part of `pybullet_multigoal_gym_tpu/ops/dynamics.py`
 and `Engine.init_state`), batched over a leading env axis. The physics itself
 is `ops/engine_plain.py` / `ops/multibody_plain.py` (plain PyTorch) and
 `ops/cuda_engine.py` / `ops/cuda_multibody.py` (the kernels) for scenes with
-at most one free body / several free boxes. One control step =
+at most one free body / several free bodies of box geoms. One control step =
 ``n_substeps`` velocity-level substeps of ``DT_SUB`` seconds (5
 stepSimulation calls x 20 substeps = 100).
 """
@@ -113,23 +113,47 @@ def scene_consts(spec: S.SceneSpec, ik_workspace: bool = True) -> SceneConsts:
 
 @dataclasses.dataclass(frozen=True)
 class MultiBodyConsts:
-    """Everything static that the control step of a scene of free
-    single-box bodies needs (`pallas_multibody.py:262-299`), per body in
-    body order, in float32 where the kernels read it."""
+    """Everything static that the control step of a scene of free bodies
+    made of box geoms needs (`pallas_multibody.py:262-299`), per body in
+    body order and per geom in geom order, in float32 where the kernels
+    read it."""
     nb: int
-    half: Tuple[Tuple[float, float, float], ...]          # box half extents
+    # the geom table: each geom's body, half extents and offset in the body
+    # frame (its centre is the body position plus R offset)
+    geom_body: Tuple[int, ...]
+    geom_half: Tuple[Tuple[float, float, float], ...]
+    geom_pos: Tuple[Tuple[float, float, float], ...]
     inv_mass: Tuple[float, ...]
     inv_inertia: Tuple[Tuple[float, float, float], ...]   # body-frame diagonal
     body_friction: Tuple[float, ...]
     plane_z: float
     plane_friction: float
     # arm-sphere lanes kept by the workspace envelope (lane_cull), bit sp:
-    # against the plane, and against every block (all blocks are alike)
+    # against the plane, and against each geom
     plane_mask: int
-    geom_mask: int
+    geom_mask: Tuple[int, ...]
     solver_iters: int = 8
     erp: float = 0.2
     slop: float = 5e-4
+
+    @property
+    def ng(self):
+        return len(self.geom_body)
+
+    @property
+    def geom_order(self):
+        """The geoms in the lane plan's order: per body, its geoms."""
+        return [g for b in range(self.nb) for g in range(self.ng)
+                if self.geom_body[g] == b]
+
+    @property
+    def geom_pairs(self):
+        """The geom pairs of two bodies in the lane plan's order: per pair
+        of bodies b < b2, each geom of b with each geom of b2."""
+        order = self.geom_order
+        return [(g, g2) for b in range(self.nb) for b2 in range(b + 1, self.nb)
+                for g in order if self.geom_body[g] == b
+                for g2 in order if self.geom_body[g2] == b2]
 
     # lane frictions (pallas_multibody.py:403-517)
     def mu_plane(self, b):
@@ -155,13 +179,15 @@ class MultiBodyConsts:
 
 def multibody_consts(spec: S.SceneSpec, ik_workspace: bool = True
                      ) -> MultiBodyConsts:
-    """Static constants of a multi-body scene of free boxes of one size,
-    one geom per body at the body origin, with the parallel-jaw gripper (the
-    multi-step family without the chest). ``ik_workspace=False`` (joint
-    control) keeps every arm-sphere lane. Raises `NotImplementedError` for
-    what later slices of the port bring: static boxes, the chest door,
-    pinned bodies, several geoms per body, cylinders and boxes of several
-    sizes."""
+    """Static constants of a multi-body scene of free bodies made of one or
+    more box geoms of any size, with the parallel-jaw gripper (the
+    multi-step family without the chest, the push-primitive family).
+    ``ik_workspace=False`` (joint control) keeps every arm-sphere lane.
+    A body's inertia is that of its geom at the body origin alone, or a
+    1e-3 diagonal where it has none (the reference's convention,
+    `pallas_multibody.py:273-281`). Raises `NotImplementedError` for what
+    later slices of the port bring: static boxes, the chest door, pinned
+    bodies and cylinders."""
     later = 'come with a later slice of the port'
     if spec.ns_static or spec.door is not None:
         raise NotImplementedError('the chest (static walls and the door) '
@@ -169,48 +195,47 @@ def multibody_consts(spec: S.SceneSpec, ik_workspace: bool = True
     a = spec.np_arrays()
     if (a['body_mass'] <= 0).any():
         raise NotImplementedError('pinned bodies ' + later)
-    if len(a['geom_body']) != spec.n_bodies or \
-            (a['geom_body'] != np.arange(spec.n_bodies)).any() or \
-            (a['geom_pos'] != 0).any():
-        raise NotImplementedError('bodies of several geoms ' + later)
     if (a['geom_type'] != S.BOX).any():
         raise NotImplementedError('cylinder bodies ' + later)
-    if (a['geom_half'] != a['geom_half'][0]).any():
-        raise NotImplementedError('boxes of several sizes ' + later)
     reach = LC.arm_lane_mask(spec, ik_workspace)
-    masks = {sum(1 << sp for sp in range(N_ARM_SPHERES) if reach['geom'][sp][g])
-             for g in range(spec.n_bodies)}
-    if len(masks) != 1:
-        raise NotImplementedError('bodies that the arm spheres reach '
-                                  'differently ' + later)
-    half, inv_inertia = [], []
+    ng = len(a['geom_body'])
+    inv_inertia = []
     for b in range(spec.n_bodies):
-        h = tuple(float(x) for x in a['geom_half'][b])
-        inertia = S.body_inertia_diag(float(a['body_mass'][b]), h, S.BOX)
-        half.append(h)
+        inertia = np.full(3, 1e-3)
+        for g in range(ng):
+            if a['geom_body'][g] == b and (a['geom_pos'][g] == 0).all():
+                inertia = S.body_inertia_diag(
+                    float(a['body_mass'][b]),
+                    tuple(float(x) for x in a['geom_half'][g]), S.BOX)
         inv_inertia.append(tuple(float(x) for x in
                                  (1.0 / inertia).astype(np.float32)))
     return MultiBodyConsts(
-        nb=spec.n_bodies, half=tuple(half),
+        nb=spec.n_bodies,
+        geom_body=tuple(int(b) for b in a['geom_body']),
+        geom_half=tuple(tuple(float(x) for x in h) for h in a['geom_half']),
+        geom_pos=tuple(tuple(float(x) for x in p) for p in a['geom_pos']),
         inv_mass=tuple(1.0 / float(m) for m in a['body_mass']),
         inv_inertia=tuple(inv_inertia),
         body_friction=tuple(float(f) for f in a['body_friction']),
         plane_z=spec.plane_z, plane_friction=spec.plane_friction,
         plane_mask=sum(1 << sp for sp in range(N_ARM_SPHERES)
                        if reach['plane'][sp]),
-        geom_mask=masks.pop())
+        geom_mask=tuple(sum(1 << sp for sp in range(N_ARM_SPHERES)
+                            if reach['geom'][sp][g]) for g in range(ng)))
 
 
-def init_state(n, nb=1, q=None, body_pos=None, fq=KM.FINGER_LIMIT,
-               device=None) -> PhysicsState:
-    """A batch of n resting states with ``nb`` bodies upright
-    (`Engine.init_state`); ``body_pos`` is (n, nb, 3)."""
+def init_state(n, nb=1, q=None, body_pos=None, body_quat=None,
+               fq=KM.FINGER_LIMIT, device=None) -> PhysicsState:
+    """A batch of n resting states with ``nb`` bodies (`Engine.init_state`):
+    ``body_pos`` is (n, nb, 3), ``body_quat`` (n, nb, 4) wxyz or None for
+    upright bodies."""
     z = torch.zeros((), dtype=torch.float32, device=device)
     if q is None:
         q = const(KM.KUKA_REST_POSE, z).expand(n, 7)
     if body_pos is None:
         body_pos = z.new_zeros((n, nb, 3))
-    body_quat = const([1.0, 0.0, 0.0, 0.0], z).expand(n, nb, 4)
+    if body_quat is None:
+        body_quat = const([1.0, 0.0, 0.0, 0.0], z).expand(n, nb, 4)
     return PhysicsState(
         q=q.to(z).expand(n, 7).contiguous(),
         qd=z.new_zeros((n, 7)),

@@ -290,7 +290,8 @@ def sphere_plane_lane(c, radius, plane_z, mu, **meta):
 
 
 def sphere_box_lane(c, radius, cb, Rb, hb, mu, **meta):
-    """Sphere (A) vs box (B): 1 lane; the normal pushes the sphere out."""
+    """Sphere (A) vs box (B): 1 lane; the normal pushes the sphere out.
+    ``radius`` is a float or one per row, (N,)."""
     rel = c - cb
     cl = [vdot(_col(Rb, i), rel) for i in range(3)]
     delta = torch.stack([cl[i] - cl[i].clamp(-hb[i], hb[i])
@@ -309,8 +310,8 @@ def sphere_box_lane(c, radius, cb, Rb, hb, mu, **meta):
     n_local = n_out * outside[:, None] + n_in * (1.0 - outside[:, None])
     pen = (radius - d) * outside + (radius + emin) * (1.0 - outside)
     n = mat3vec(Rb, n_local)
-    return [_mk_lane(c - n * radius, n, pen, (pen > -1e-4).float(), mu,
-                     **meta)]
+    r = radius[:, None] if torch.is_tensor(radius) else radius
+    return [_mk_lane(c - n * r, n, pen, (pen > -1e-4).float(), mu, **meta)]
 
 
 def build_lanes(sc: D.SceneConsts, ch, bp, bq, Ra):

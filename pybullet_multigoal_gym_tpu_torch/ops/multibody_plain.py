@@ -2,23 +2,27 @@
 several free bodies.
 
 Counterpart of `pybullet_multigoal_gym_tpu/ops/pallas_multibody.py`
-(`_build_kernel`'s ``substep``, `:336-852`) for scenes of free single-box
-bodies with the parallel-jaw gripper (block_stack and block_rearrange),
-written over a leading env axis: bodies stack on axis 1 of the state, and
-contact lanes on axis 1 of the lane tensors. The lane order, the lane
-frictions and the side metadata are those of the Pallas kernel: per free
-body, the plane (4) then the two fingers (2 x 9); then each pair of bodies
-(9 + the edge-edge candidate); then the finger pads on the plane (2 x 4);
-then the arm-sphere lanes that `ops/lane_cull.py` keeps (per sphere, the
-plane, then each body). A lane's sides are ('body', b), ('finger', f),
-('arm', sphere) or ('world',); its arm link, arm sign, arm coupling and
-EE-sensor sign follow from them (`pallas_multibody.py:68-107`).
+(`_build_kernel`'s ``substep``, `:336-852`) for scenes of free bodies made
+of box geoms of any size, with the parallel-jaw gripper (block_stack,
+block_rearrange and the push primitives), written over a leading env axis:
+bodies stack on axis 1 of the state, and contact lanes on axis 1 of the
+lane tensors. The lane order, the lane frictions and the side metadata are
+those of the Pallas kernel: per free body, per geom of it, the plane (4)
+then the two fingers (2 x 9); then per pair of bodies, per pair of their
+geoms, 9 + the edge-edge candidate; then the finger pads on the plane (2 x
+4); then the arm-sphere lanes that `ops/lane_cull.py` keeps (per sphere,
+the plane, then each geom it reaches). Every lane of a geom acts on its
+body: the solve, the mass splitting and the coupling are per body. A lane's
+sides are ('body', b), ('finger', f), ('arm', sphere) or ('world',); its arm
+link, arm sign, arm coupling and EE-sensor sign follow from them
+(`pallas_multibody.py:68-107`).
 
 The CPU path and the tests run this module; on the card
 `ops/cuda_multibody.py` launches `csrc/multibody.cu` instead, and the chip
 smoke test holds the two against each other.
 """
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -82,37 +86,34 @@ def lane_group(spec: LaneSpec):
     return 'sphere-plane' if kb == 'world' else 'sphere-box'
 
 
-def _pairs(nb):
-    return [(b, b2) for b in range(nb) for b2 in range(b + 1, nb)]
-
-
 def _sphere_lanes(sc: D.MultiBodyConsts):
-    """The kept arm-sphere lanes in the kernel's order, as (sphere, body)
-    with body -1 for the plane."""
+    """The kept arm-sphere lanes in the kernel's order, as (sphere, geom)
+    with geom -1 for the plane."""
     out = []
     for sp in range(D.N_ARM_SPHERES):
         if sc.plane_mask >> sp & 1:
             out.append((sp, -1))
-        if sc.geom_mask >> sp & 1:
-            out += [(sp, b) for b in range(sc.nb)]
+        out += [(sp, g) for g in sc.geom_order if sc.geom_mask[g] >> sp & 1]
     return out
 
 
 def lane_plan(sc: D.MultiBodyConsts):
     """Every lane's `LaneSpec`, in the kernel's order."""
-    plan = []
-    for b in range(sc.nb):
+    plan, gb = [], sc.geom_body
+    for g in sc.geom_order:
+        b = gb[g]
         plan += [LaneSpec(sc.mu_plane(b), ('body', b), ('world',))] * 4
         for f in range(2):
             plan += [LaneSpec(sc.mu_finger(b), ('body', b), ('finger', f))] * 9
-    for b, b2 in _pairs(sc.nb):
+    for g, g2 in sc.geom_pairs:
+        b, b2 = gb[g], gb[g2]
         plan += [LaneSpec(sc.mu_pair(b, b2), ('body', b), ('body', b2))] * 10
     for f in range(2):
         plan += [LaneSpec(sc.mu_finger_plane, ('finger', f), ('world',))] * 4
-    for sp, b in _sphere_lanes(sc):
+    for sp, g in _sphere_lanes(sc):
         plan.append(LaneSpec(sc.mu_sphere_plane, ('arm', sp), ('world',))
-                    if b < 0 else
-                    LaneSpec(sc.mu_sphere(b), ('arm', sp), ('body', b)))
+                    if g < 0 else
+                    LaneSpec(sc.mu_sphere(gb[g]), ('arm', sp), ('body', gb[g])))
     return plan
 
 
@@ -126,17 +127,48 @@ def _stack(lanes, rows):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _plan_positions(sc: D.MultiBodyConsts):
+    """Where each item's lanes start in `lane_plan`: ('geom', g), ('pair',
+    (g, g2)), 'pads', ('plane', sp) and ('sphere', sp, g)."""
+    pos, at = {}, 0
+    for g in sc.geom_order:
+        pos['geom', g] = at
+        at += 22
+    for p in sc.geom_pairs:
+        pos['pair', p] = at
+        at += 10
+    pos['pads'] = at
+    at += 8
+    for sp, g in _sphere_lanes(sc):
+        pos[('plane', sp) if g < 0 else ('sphere', sp, g)] = at
+        at += 1
+    return pos
+
+
+def _by_size(items, size):
+    """``items`` grouped by ``size(item)``, each group in item order."""
+    groups = {}
+    for i in items:
+        groups.setdefault(size(i), []).append(i)
+    return groups.items()
+
+
 def build_lanes(sc: D.MultiBodyConsts, ch, bp, bq, R):
     """All contact lanes of one substep in the kernel's order (`lane_plan`),
     as (N, L, 3) points and normals and (N, L) penetrations and 0/1
     activations. ``bp`` (N, NB, 3), ``bq`` (N, NB, 4) and ``R`` (N, NB, 3,
-    3) are the bodies' positions, orientations and rotation matrices. The
-    lanes of one kind are computed for all bodies, pairs, fingers or
-    spheres at once (the blocks are alike: `D.multibody_consts`)."""
-    N, nb = bp.shape[:2]
-    h, fhalf = sc.half[0], EP.FINGER_HALF
+    3) are the bodies' positions, orientations and rotation matrices. A
+    geom's centre is its body's position plus R times its offset
+    (`pallas_multibody.py:393-397`). The lanes of one kind are computed for
+    all geoms, geom pairs, fingers or sphere-geom pairs of one size at once,
+    then put in plan order."""
+    N = bp.shape[0]
+    fhalf = EP.FINGER_HALF
     fpos, r7 = ch['fpos'], ch['r7']
     Rb7 = qmat(r7)
+    gb, half = sc.geom_body, sc.geom_half
+    pos = _plan_positions(sc)
 
     def flat(x):
         return x.reshape((-1,) + x.shape[2:])
@@ -144,35 +176,77 @@ def build_lanes(sc: D.MultiBodyConsts, ch, bp, bq, R):
     def rep(x, k):                 # (M, ...) -> (M * k, ...), each k times
         return flat(x[:, None].expand((x.shape[0], k) + x.shape[1:]))
 
-    c_b, Rf = flat(bp), flat(R)
-    # per body: the plane (4), then finger 0 and finger 1 (9 each)
-    plane = _stack(EP.box_plane_lanes(c_b, flat(bq), h, sc.plane_z, 0.0),
-                   N * nb)
-    fingers = _stack(EP.sat_box_box_lanes(
-        rep(c_b, 2), rep(Rf, 2), h, flat(rep(fpos, nb)),
-        rep(rep(Rb7, nb), 2), fhalf, 0.0), N * nb)
-    blocks = [[torch.cat([a, b], 1).reshape((N, -1) + a.shape[2:])
-               for a, b in zip(plane, fingers)]]
-    pairs = _pairs(nb)
-    if pairs:
-        ia = [b for b, _ in pairs]
-        ib = [b2 for _, b2 in pairs]
-        args = (flat(bp[:, ia]), flat(R[:, ia]), h, flat(bp[:, ib]),
-                flat(R[:, ib]), h, 0.0)
-        blocks.append(_stack(EP.sat_box_box_lanes(*args) + EP.edge_lane(*args),
-                             N))
-    blocks.append(_stack(EP.box_plane_lanes(
-        flat(fpos), rep(r7, 2), fhalf, sc.plane_z, 0.0), N))
+    centre = {}
+    for g in range(sc.ng):
+        c = bp[:, gb[g]]
+        if any(sc.geom_pos[g]):
+            c = c + _mat3vec(R[:, gb[g]], const(sc.geom_pos[g], c))
+        centre[g] = c
+
+    def geoms(sel):
+        """Centres, rotation matrices and orientations of geoms ``sel``,
+        (N x len(sel), ...), geom-major within each env."""
+        bs = [gb[g] for g in sel]
+        return (flat(torch.stack([centre[g] for g in sel], 1)),
+                flat(R[:, bs]), flat(bq[:, bs]))
+
+    blocks, order = [], []       # lane tensors, and their lanes' plan places
+
+    def add(fields, places):
+        blocks.append([x.reshape((N, -1) + x.shape[2:]) for x in fields])
+        order.extend(places)
+
+    # per geom: the plane (4), then finger 0 and finger 1 (9 each)
+    for h, sel in _by_size(sc.geom_order, lambda g: half[g]):
+        c, Rg, q = geoms(sel)
+        k = len(sel)
+        plane = _stack(EP.box_plane_lanes(c, q, h, sc.plane_z, 0.0), N * k)
+        fingers = _stack(EP.sat_box_box_lanes(
+            rep(c, 2), rep(Rg, 2), h, flat(rep(fpos, k)),
+            rep(rep(Rb7, k), 2), fhalf, 0.0), N * k)
+        add([torch.cat([a, b], 1) for a, b in zip(plane, fingers)],
+            [pos['geom', g] + j for g in sel for j in range(22)])
+    # per geom pair of two bodies: the SAT manifold and the edge lane
+    for (ha, hb), sel in _by_size(sc.geom_pairs,
+                                  lambda p: (half[p[0]], half[p[1]])):
+        ca, Ra, _ = geoms([g for g, _ in sel])
+        cb, Rb, _ = geoms([g2 for _, g2 in sel])
+        args = (ca, Ra, ha, cb, Rb, hb, 0.0)
+        add(_stack(EP.sat_box_box_lanes(*args) + EP.edge_lane(*args),
+                   N * len(sel)),
+            [pos['pair', p] + j for p in sel for j in range(10)])
+    add(_stack(EP.box_plane_lanes(flat(fpos), rep(r7, 2), fhalf, sc.plane_z,
+                                  0.0), N),
+        range(pos['pads'], pos['pads'] + 8))
+    radius = [float(np.float32(r)) for r in KM.ARM_SPHERE_RADIUS]
+    spheres = ch['spheres']
     for sp in range(D.N_ARM_SPHERES):
-        radius = float(np.float32(KM.ARM_SPHERE_RADIUS[sp]))
-        c = ch['spheres'][:, sp]
         if sc.plane_mask >> sp & 1:
-            blocks.append(_stack(EP.sphere_plane_lane(c, radius, sc.plane_z,
-                                                      0.0), N))
-        if sc.geom_mask >> sp & 1:
-            blocks.append(_stack(EP.sphere_box_lane(rep(c, nb), radius, c_b,
-                                                    Rf, h, 0.0), N))
-    return [torch.cat([b[f] for b in blocks], 1) for f in range(4)]
+            add(_stack(EP.sphere_plane_lane(spheres[:, sp], radius[sp],
+                                            sc.plane_z, 0.0), N),
+                [pos['plane', sp]])
+    # every kept sphere-geom pair of one geom size at once
+    for h, sel in _by_size([(sp, g) for sp, g in _sphere_lanes(sc) if g >= 0],
+                           lambda p: half[p[1]]):
+        sps = [sp for sp, _ in sel]
+        cg, Rg, _ = geoms([g for _, g in sel])
+        r = const([radius[sp] for sp in sps], cg)
+        add(_stack(EP.sphere_box_lane(flat(spheres[:, sps]),
+                                      r.expand(N, len(sel)).reshape(-1),
+                                      cg, Rg, h, 0.0), N * len(sel)),
+            [pos['sphere', sp, g] for sp, g in sel])
+    out = [torch.cat([b[f] for b in blocks], 1) for f in range(4)]
+    if order == sorted(order):
+        return out
+    key = (sc, bp.device)
+    perm = _PERM.get(key)
+    if perm is None:
+        perm = _PERM[key] = torch.as_tensor(np.argsort(order),
+                                            device=bp.device)
+    return [x[:, perm] for x in out]
+
+
+_PERM = {}      # per scene and device: build_lanes' order -> plan order
 
 
 _META = {}

@@ -92,7 +92,8 @@ def bind(lib):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     so.ik_count.argtypes = [P, P, I, I, F, F, F, I]
     so.engine_count.argtypes = [I, I, I, P, P, P, P, I, I, I, I]
-    so.multibody_count.argtypes = [I, I, I, P, P, P, P, I, I, I, I, I]
+    so.multibody_count.argtypes = [I, I, ctypes.c_uint, I, ctypes.c_ulonglong,
+                                   I, P, P, P, P, I, I, I, I, I]
     so.ik_count.restype = so.engine_count.restype = ctypes.c_ulonglong
     so.multibody_count.restype = ctypes.c_ulonglong
     return so
@@ -139,12 +140,11 @@ def multibody_ops(lib, sc, state, controls, n_substeps):
     rows, ctl_rows = (x.cpu() for x in cuda_multibody.pack(state, controls))
     prm = torch.tensor(cuda_multibody.scene_params(sc), dtype=torch.float32)
     out = torch.empty_like(rows)
-    ops = lib.multibody_count(sc.nb, sc.plane_mask, sc.geom_mask,
-                              rows.data_ptr(), ctl_rows.data_ptr(),
+    key = cuda_multibody.scene_key(sc)
+    ops = lib.multibody_count(*key, rows.data_ptr(), ctl_rows.data_ptr(),
                               prm.data_ptr(), out.data_ptr(), prm.numel(),
                               rows.shape[1], int(n_substeps), sc.solver_iters,
                               _threads())
     if ops == 2 ** 64 - 1:
-        raise ValueError('the kernel library holds no scene %s'
-                         % ((sc.nb, sc.plane_mask, sc.geom_mask),))
+        raise ValueError('the kernel library holds no scene %s' % (key,))
     return int(ops), cuda_multibody.unpack(out, sc.nb)

@@ -30,15 +30,17 @@ extern "C" int engine_host(int has_body, int plane_mask, int geom_mask,
     return 1;
 }
 
-extern "C" int multibody_host(int nb, int plane_mask, int geom_mask,
-                              const float* st, const float* ctl,
-                              const float* prm, float* out, int n, int n_sub,
-                              int iters) {
-#define MULTIBODY_CASE(NB, PM, GM)                                        \
-    if (nb == NB && plane_mask == PM && geom_mask == GM) {                \
+extern "C" int multibody_host(int nb, int ng, unsigned geom_bodies,
+                              int plane_mask, unsigned long long geom_masks,
+                              int offset_geoms, const float* st,
+                              const float* ctl, const float* prm, float* out,
+                              int n, int n_sub, int iters) {
+#define MULTIBODY_CASE(NB, NG, GB, PM, GM, OM)                            \
+    if (nb == NB && ng == NG && geom_bodies == GB && plane_mask == PM &&  \
+        geom_masks == GM##ULL && offset_geoms == OM) {                    \
         for (int i = 0; i < n; ++i)                                       \
-            kin::mb::multibody_env<NB, PM, GM>(st, ctl, prm, out, n, i,   \
-                                               n_sub, iters);             \
+            kin::mb::multibody_env<NB, NG, GB, PM, GM##ULL, OM>(          \
+                st, ctl, prm, out, n, i, n_sub, iters);                   \
         return 0;                                                         \
     }
     MULTIBODY_SCENES(MULTIBODY_CASE)

@@ -1,7 +1,8 @@
 """The port stands alone: importing it and stepping an env of each family
-(reach, and block_rearrange on the multi-body engine) loads neither JAX nor
-any module of the JAX package, and its entry point asks for CUDA unless the
-caller passes ``device='cpu'``."""
+(reach, and block_rearrange on the multi-body engine), and resetting a
+push-primitive env, loads neither JAX nor any module of the JAX package,
+and its entry point asks for CUDA unless the caller passes
+``device='cpu'``."""
 
 import ast
 import json
@@ -32,13 +33,19 @@ multi = port.make_vec_env(num_envs=2, task='block_rearrange', num_block=1,
 mstate, mobs = multi.reset()
 mstate, mobs, _, _, _ = multi.step(mstate, torch.zeros((2, 3)))
 interop.state_to_numpy(mstate)
+prim = port.make_vec_env(num_envs=2, task='primitive_push_assemble',
+                         primitive='discrete_push', device='cpu')
+pstate, pobs = prim.reset()
+prim.core.step_decode_waypoints(torch.zeros((2, 3)))
+interop.state_to_numpy(pstate)
 demonstrator.StepDemonstrator(demonstrator.default_demonstrations(2))
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.')
              or m == 'pybullet_multigoal_gym_tpu'
              or m.startswith('pybullet_multigoal_gym_tpu.'))
 print(json.dumps({'bad': bad, 'obs': list(obs['observation'].shape),
-                  'multi_obs': list(mobs['observation'].shape)}))
+                  'multi_obs': list(mobs['observation'].shape),
+                  'prim_obs': list(pobs['observation'].shape)}))
 '''
 
 
@@ -77,7 +84,8 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res == {'bad': [], 'obs': [2, 3], 'multi_obs': [2, 24]}
+    assert res == {'bad': [], 'obs': [2, 3], 'multi_obs': [2, 24],
+                   'prim_obs': [2, 12]}
 
 
 def test_default_device_is_cuda():

@@ -53,9 +53,9 @@ from pybullet_multigoal_gym_tpu_torch.ops.cuda_multibody import (
     CudaMultiBodyEngine)
 from tests import kernel_ops
 from tests.torch_common import (ARM_FIELDS, BODY_FIELDS, cuda, inputs,  # noqa: F401
-                                multi_inputs, n, noise_bound, plain_run, t,
-                                torch_controls, torch_state,
-                                workspace_targets)
+                                multi_inputs, n, noise_bound, plain_run,
+                                primitive_inputs, t, torch_controls,
+                                torch_state, workspace_targets)
 
 torch.set_num_threads(1)
 
@@ -85,7 +85,8 @@ def host_kernels():
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     so.ik_host.argtypes = [P, P, I, I, F, F, F]
     so.engine_host.argtypes = [I, I, I, P, P, P, P, I, I, I]
-    so.multibody_host.argtypes = [I, I, I, P, P, P, P, I, I, I]
+    so.multibody_host.argtypes = [I, I, ctypes.c_uint, I, ctypes.c_ulonglong,
+                                  I, P, P, P, P, I, I, I]
     for fn in (so.ik_host, so.engine_host, so.multibody_host):
         fn.restype = ctypes.c_int
     return so
@@ -151,21 +152,31 @@ def _multibody_host(host_kernels, sc, st, ctl, n_sub):
     prm = torch.tensor(cuda_multibody.scene_params(sc), dtype=torch.float32)
     out = torch.empty_like(rows)
     assert host_kernels.multibody_host(
-        sc.nb, sc.plane_mask, sc.geom_mask, rows.data_ptr(),
-        ctl_rows.data_ptr(), prm.data_ptr(), out.data_ptr(), rows.shape[1],
-        n_sub, sc.solver_iters) == 0
+        *cuda_multibody.scene_key(sc), rows.data_ptr(), ctl_rows.data_ptr(),
+        prm.data_ptr(), out.data_ptr(), rows.shape[1], n_sub,
+        sc.solver_iters) == 0
     return cuda_multibody.unpack(out, sc.nb)
 
 
-@pytest.mark.parametrize('nb', [2, 5])
+@pytest.mark.parametrize('nb', [1, 2, 3, 4, 5])
 @pytest.mark.parametrize('kind', ['drop', 'contact', 'sphere'])
 def test_multibody_source_on_host_matches_plain(host_kernels, nb, kind):
-    """K3's scenes of block_rearrange (2 blocks) and block_stack (5), 2
+    """K3's scenes of block_rearrange and block_stack, 1-5 blocks, 2
     substeps: EE control on the drop and contact states, joint control
     with a wrist or elbow sphere on the table."""
     sc = D.multibody_consts(S.multi_step_scene(nb),
                             ik_workspace=kind != 'sphere')
     st, ctl = multi_inputs(nb, kind, N_HOST // 2, seed=1)
+    # (a single dropped block is still falling after 2 substeps)
+    want = {'drop': ('box-plane',) if nb > 1 else (),
+            'contact': ('finger-box',) + (('box-box',) if nb > 1 else ()),
+            'sphere': ('sphere-plane',)}[kind]
+    _multibody_host_vs_plain(host_kernels, sc, st, ctl, want)
+
+
+def _multibody_host_vs_plain(host_kernels, sc, st, ctl, want):
+    """The host build of K3 against its plain version, 2 substeps; the lane
+    groups ``want`` act."""
     st, ctl = torch_state(st), torch_controls(ctl)
     out = _multibody_host(host_kernels, sc, st, ctl, 2)
     ref, active = plain_run(sc, st, ctl, 2)
@@ -173,21 +184,42 @@ def test_multibody_source_on_host_matches_plain(host_kernels, nb, kind):
     np.testing.assert_allclose(n(out.ee_contact_force),
                                n(ref.ee_contact_force), atol=2e-3 / D.DT_SUB)
     np.testing.assert_array_equal(n(out.door_q), n(st.door_q))
-    want = {'drop': ('box-plane',),
-            'contact': ('box-box', 'finger-box'),
-            'sphere': ('sphere-plane',)}[kind]
     assert all(active[g] > 0 for g in want), active
 
 
+# the push-primitive scenes' checks: (objects, state, control)
+PRIMITIVE_CASES = [(('slot', 'cube'), 'drop', 'ee'),
+                   (('slot', 'cube'), 'press', 'ee'),
+                   (('slot', 'cube'), 'drop', 'joint'),
+                   (('rectangle',), 'drop', 'ee'),
+                   (('rectangle',), 'drop', 'joint')]
+
+
+@pytest.mark.parametrize('keys,kind,control', PRIMITIVE_CASES)
+def test_multibody_source_on_host_matches_plain_multi_geom(
+        host_kernels, keys, kind, control):
+    """K3's push-primitive scenes (bodies of several box geoms and sizes),
+    2 substeps: the objects dropped onto the plate, and the pads pushing
+    the cube into the slot's mouth."""
+    sc = D.multibody_consts(S.shape_assemble_scene(keys),
+                            ik_workspace=control == 'ee')
+    st, ctl = primitive_inputs(keys, kind, N_HOST // 2, seed=1)
+    want = {'drop': ('box-plane',),
+            'press': ('box-box', 'finger-box')}[kind]
+    _multibody_host_vs_plain(host_kernels, sc, st, ctl, want)
+
+
 def _scene_table(name):
-    """The instances of a kernel library's scene table macro, as strings:
-    (has a body or number of bodies, plane mask, body mask)."""
+    """The instances of a kernel library's scene table macro, as tuples of
+    strings: (has a body, plane mask, body mask) for engine.cu, (bodies,
+    geoms, geom bodies, plane mask, geom masks, offset geoms) for
+    multibody.cu."""
     text = (_build.CSRC / (name + '.cu')).read_text()
     macro = {'engine': 'ENGINE_SCENES', 'multibody': 'MULTIBODY_SCENES'}[name]
     table = text[text.index('#define ' + macro):]
     table = table[:table.index('\n\n')]
-    return set(re.findall(r'X\((\w+),\s*(0x[0-9a-f]+),\s*(0x[0-9a-f]+)\)',
-                          table))
+    return set(tuple(x.strip() for x in args.split(','))
+               for args in re.findall(r'X\(([^)]*)\)', table))
 
 
 @pytest.mark.parametrize('task', ['reach', 'push', 'pick_and_place'])
@@ -204,23 +236,31 @@ def test_engine_library_holds_every_scene(task, joint_control):
     assert (sc.has_body, sc.plane_mask, sc.geom_mask) in held
 
 
-@pytest.mark.parametrize('task', ['block_rearrange', 'block_stack'])
+@pytest.mark.parametrize('task', ['block_rearrange', 'block_stack',
+                                  'primitive_push_assemble',
+                                  'primitive_push_reach'])
 @pytest.mark.parametrize('joint_control', [False, True])
 def test_multibody_library_holds_every_scene(task, joint_control):
-    """The (bodies, plane mask, body mask) of every scene the multi-step
-    envs build, 1-5 blocks, is one `MULTIBODY_SCENES` instance of
-    multibody.cu: a missing one would fail only at launch, on the card."""
-    held = {(int(nb), int(pm, 16), int(gm, 16))
-            for nb, pm, gm in _scene_table('multibody')}
-    assert len(held) == 10
-    env = make_vec_env(num_envs=1, task=task, num_block=2,
-                       joint_control=joint_control, device='cpu')
-    assert env.core.scene == D.multibody_consts(
-        S.multi_step_scene(2), ik_workspace=not joint_control)
-    for nb in range(1, 6):
-        sc = D.multibody_consts(S.multi_step_scene(nb),
-                                ik_workspace=not joint_control)
-        assert (sc.nb, sc.plane_mask, sc.geom_mask) in held
+    """The structure (`cuda_multibody.scene_key`) of every scene the
+    multi-step envs build, 1-5 blocks, and the push-primitive envs build
+    is one `MULTIBODY_SCENES` instance of multibody.cu: a missing one would
+    fail only at launch, on the card."""
+    held = {tuple(int(x, 0) for x in key)
+            for key in _scene_table('multibody')}
+    assert len(held) == 13
+    if task.startswith('primitive'):
+        env = make_vec_env(num_envs=1, task=task, primitive='discrete_push',
+                           joint_control=joint_control, device='cpu')
+        specs = [S.shape_assemble_scene(env.cfg.manipulated_object_keys)]
+    else:
+        env = make_vec_env(num_envs=1, task=task, num_block=2,
+                           joint_control=joint_control, device='cpu')
+        specs = [S.multi_step_scene(nb) for nb in range(1, 6)]
+        assert env.core.scene == D.multibody_consts(
+            S.multi_step_scene(2), ik_workspace=not joint_control)
+    for spec in specs:
+        sc = D.multibody_consts(spec, ik_workspace=not joint_control)
+        assert cuda_multibody.scene_key(sc) in held
 
 
 # ---------------------------------------------- operation count, CPU
@@ -271,7 +311,22 @@ def test_multibody_count_build_runs_the_host_build(host_kernels,
     grows with the substeps and is zero for none."""
     sc = D.multibody_consts(S.multi_step_scene(nb))
     st, ctl = multi_inputs(nb, 'contact', 16, seed=1)
-    st, ctl = torch_state(st), torch_controls(ctl)
+    _count_build_runs_the_host_build(host_kernels, count_kernels, sc,
+                                     torch_state(st), torch_controls(ctl))
+
+
+def test_multibody_count_build_runs_the_host_build_multi_geom(
+        host_kernels, count_kernels):
+    """The same for the push-primitive scene of the slot and the cube, on
+    the pads pushing the cube into the slot's mouth."""
+    sc = D.multibody_consts(S.shape_assemble_scene(('slot', 'cube')))
+    st, ctl = primitive_inputs(('slot', 'cube'), 'press', 16, seed=1)
+    _count_build_runs_the_host_build(host_kernels, count_kernels, sc,
+                                     torch_state(st), torch_controls(ctl))
+
+
+def _count_build_runs_the_host_build(host_kernels, count_kernels, sc, st,
+                                     ctl):
     out = _multibody_host(host_kernels, sc, st, ctl, 3)
     ops, counted = kernel_ops.multibody_ops(count_kernels, sc, st, ctl, 3)
     for f in D.PhysicsState._fields:
@@ -405,6 +460,42 @@ def test_multibody_kernel_matches_plain(cuda, nb, kind, n_sub):
     sc = D.multibody_consts(S.multi_step_scene(nb),
                             ik_workspace=kind != 'sphere')
     st, ctl = multi_inputs(nb, kind, N, seed=1)
+    st, ctl = torch_state(st, cuda), torch_controls(ctl, cuda)
+    w = CudaMultiBodyEngine(sc)
+    out = w.control_step(st, ctl, n_substeps=n_sub)
+    torch.cuda.synchronize()
+    assert w.launches == 1
+    ref = MP.control_step(sc, st, ctl, n_sub)
+    fields = ARM_FIELDS + BODY_FIELDS
+    err = env_errors(out, ref, fields)
+    bound, _, allowed, cap = noise_bound(
+        sc, st, ctl, n_sub, ref, lambda a, b: env_errors(a, b, fields),
+        1e-4 if n_sub == 2 else 2e-3)
+    share = err / n(bound)
+    beyond = np.nonzero(share > 1)[0]
+    assert len(beyond) <= allowed and share.max() <= cap, (
+        beyond[:8], share[beyond[:8]], allowed, cap)
+
+
+# K3's checks on the push-primitive scenes: (objects, state, control,
+# substeps). The 80-substep case costs about 50 s of noisy plain runs on the
+# card; chip_smoke.py holds the slot's and the cube's main path and the
+# 'press' state after 80 substeps too.
+PRIMITIVE_CARD_CASES = [case + (2,) for case in PRIMITIVE_CASES[:4]] + [
+    (('slot', 'cube'), 'press', 'ee', 80)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('keys,kind,control,n_sub', PRIMITIVE_CARD_CASES)
+def test_multibody_kernel_matches_plain_multi_geom(cuda, keys, kind, control,
+                                                   n_sub):
+    """K3 on the push-primitive scenes at the primitive's 1024 envs, 2
+    substeps and one sub-target's 80: each env within its bound
+    (`noise_bound`), with no more envs beyond it, and none further, than a
+    noisy plain run itself lies beyond the others' bound."""
+    sc = D.multibody_consts(S.shape_assemble_scene(keys),
+                            ik_workspace=control == 'ee')
+    st, ctl = primitive_inputs(keys, kind, 1024, seed=1)
     st, ctl = torch_state(st, cuda), torch_controls(ctl, cuda)
     w = CudaMultiBodyEngine(sc)
     out = w.control_step(st, ctl, n_substeps=n_sub)

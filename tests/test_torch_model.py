@@ -71,10 +71,24 @@ def test_scene_and_lane_mask_match_jax(has_obj, ik_workspace):
                  JLC.arm_lane_mask(jspec, ik_workspace), 'arm_lane_mask')
 
 
+@pytest.mark.parametrize('keys', [('slot', 'cube'), ('rectangle',)])
+@pytest.mark.parametrize('ik_workspace', [True, False])
+def test_shape_assemble_scene_and_lane_mask_match_jax(keys, ik_workspace):
+    """The push primitives' scenes: bodies of several geoms and sizes, and
+    each sphere's reach per geom."""
+    spec, jspec = S.shape_assemble_scene(keys), JS.shape_assemble_scene(keys)
+    _assert_same(spec, jspec, 'spec')
+    _assert_same(spec.np_arrays(), jspec.np_arrays(), 'np_arrays')
+    _assert_same(LC.arm_lane_mask(spec, ik_workspace),
+                 JLC.arm_lane_mask(jspec, ik_workspace), 'arm_lane_mask')
+
+
 @pytest.mark.parametrize('kw', [
     dict(task='reach'), dict(task='push', binary_reward=False),
     dict(task='pick_and_place', joint_control=True),
-    dict(task='push', gripper='robotiq85', max_episode_steps=100)])
+    dict(task='push', gripper='robotiq85', max_episode_steps=100),
+    dict(task='primitive_push_assemble', primitive='discrete_push'),
+    dict(task='primitive_push_reach', primitive='continuous_push')])
 def test_env_config_matches_jax(kw):
     cfg, jcfg = EnvConfig(**kw), JaxConfig(**kw)
     _assert_same(cfg, jcfg, 'EnvConfig')

@@ -117,13 +117,31 @@ def test_lane_plan_matches_pallas_count(nb, joint_control):
 
 
 def test_unsupported_scenes_raise():
-    for spec in (S.multi_step_scene(2, chest=True), S.insertion_scene(),
-                 S.shape_assemble_scene(('slot', 'cube'))):
+    for spec in (S.multi_step_scene(2, chest=True), S.insertion_scene()):
         with pytest.raises(NotImplementedError, match='later slice'):
             D.multibody_consts(spec)
     with pytest.raises(NotImplementedError, match='later slice'):
         make_vec_env(num_envs=2, task='chest_push', num_block=2,
                      device='cpu')
+
+
+@pytest.mark.parametrize('keys', [('slot', 'cube'), ('rectangle',)])
+def test_shape_assemble_scenes_build(keys):
+    """Bodies of several geoms and sizes build: the geom table is the
+    scene's, and a body's inertia is its origin geom's alone (the slot's is
+    its base bar's, its two prongs add none), as the XLA engine has it."""
+    spec = S.shape_assemble_scene(keys)
+    sc = D.multibody_consts(spec)
+    a = JS.shape_assemble_scene(keys).np_arrays()
+    np.testing.assert_array_equal(sc.geom_body, a['geom_body'])
+    np.testing.assert_array_equal(np.float32(sc.geom_half), a['geom_half'])
+    np.testing.assert_array_equal(np.float32(sc.geom_pos), a['geom_pos'])
+    eng = JD.Engine(JS.shape_assemble_scene(keys))
+    np.testing.assert_allclose(sc.inv_inertia, eng.body_inv_inertia,
+                               rtol=1e-6)
+    np.testing.assert_allclose(sc.inv_mass, eng.body_inv_mass, rtol=1e-7)
+    base = S.body_inertia_diag(100.0, sc.geom_half[0])
+    np.testing.assert_allclose(sc.inv_inertia[0], 1.0 / base, rtol=1e-6)
 
 
 def test_one_block_matches_k2():
@@ -137,7 +155,8 @@ def test_one_block_matches_k2():
     assert (spec1.plane_z, spec1.plane_friction) == (push.plane_z,
                                                      push.plane_friction)
     sc2, sc3 = D.scene_consts(push), D.multibody_consts(spec1)
-    assert (sc2.plane_mask, sc2.geom_mask) == (sc3.plane_mask, sc3.geom_mask)
+    assert (sc2.plane_mask, (sc2.geom_mask,)) == (sc3.plane_mask,
+                                                  sc3.geom_mask)
     st, ctl = multi_inputs(1, 'contact', 16, seed=3)
     st, ctl = torch_state(st), torch_controls(ctl)
     a = EP.control_step(sc2, st, ctl, 2)

@@ -248,15 +248,19 @@ def plain_run(sc, st, ctl, n_sub, noise_seed=None):
     ops/multibody_plain.py for a K3 scene, substep by substep, as their
     `control_step` runs it). Returns the state after it and, per lane
     group, the share of envs where a lane of the group is active in some
-    substep. With ``noise_seed``, every element of the state moves by -1, 0
-    or +1 ulp (seeded) before each substep instead, and no shares are
-    kept: the spread of such runs is the plain version's own sensitivity to
-    rounding, which enters a run at every substep."""
+    substep (K3's box-box lanes also per geom pair, 'box-box g-g2'). With
+    ``noise_seed``, every element of the state moves by -1, 0 or +1 ulp
+    (seeded) before each substep instead, and no shares are kept: the
+    spread of such runs is the plain version's own sensitivity to rounding,
+    which enters a run at every substep."""
     multi = isinstance(sc, D.MultiBodyConsts)
     if multi:
         carry = (st.q, st.qd, st.fq, st.fqd, st.body_pos, st.body_quat,
                  st.body_linvel, st.body_angvel)
         groups = [MP.lane_group(l) for l in MP.lane_plan(sc)]
+        # the pair lanes follow the 22 lanes of each geom, 10 per geom pair
+        pairs = [(k, 'box-box %d-%d' % sc.geom_pairs[(k - 22 * sc.ng) // 10])
+                 for k, grp in enumerate(groups) if grp == 'box-box']
     else:
         carry = (st.q, st.qd, st.fq, st.fqd, st.body_pos[:, 0],
                  st.body_quat[:, 0], st.body_linvel[:, 0],
@@ -272,6 +276,7 @@ def plain_run(sc, st, ctl, n_sub, noise_seed=None):
                 act = MP.build_lanes(sc, EP.fk_chain(q, fq), bp, bq,
                                      EP.qmat(bq))[3]
                 lanes = [(grp, act[:, k]) for k, grp in enumerate(groups)]
+                lanes += [(name, act[:, k]) for k, name in pairs]
             else:
                 Ra = EP.qmat(bq) if sc.has_body else None
                 lanes = [(lane_group(l), l.active) for l in
@@ -279,9 +284,7 @@ def plain_run(sc, st, ctl, n_sub, noise_seed=None):
             for grp, a in lanes:
                 active[grp] = active.get(grp, False) | (a > 0)
         else:
-            carry = tuple(torch.nextafter(x, x + torch.randint(
-                -1, 2, x.shape, generator=g, device=x.device).to(x.dtype))
-                for x in carry)
+            carry = tuple(nudge(x, g) for x in carry)
         if multi:
             carry, ee = MP.substep(sc, carry, ctl.q_target, ctl.f_target)
         else:
@@ -292,6 +295,13 @@ def plain_run(sc, st, ctl, n_sub, noise_seed=None):
     out = st._replace(q=q, qd=qd, fq=fq, fqd=fqd, body_pos=bp, body_quat=bq,
                       body_linvel=bv, body_angvel=bw, ee_contact_force=ee)
     return out, {k: float(v.float().mean()) for k, v in sorted(active.items())}
+
+
+def nudge(x, g):
+    """``x`` with every element moved by -1, 0 or +1 ulp, drawn from
+    generator ``g``."""
+    return torch.nextafter(x, x + torch.randint(
+        -1, 2, x.shape, generator=g, device=x.device).to(x.dtype))
 
 
 def noise_bound(sc, st, ctl, n_sub, ref, errors, tol, runs=8, factor=2.0):
@@ -308,6 +318,13 @@ def noise_bound(sc, st, ctl, n_sub, ref, errors, tol, runs=8, factor=2.0):
     spread, allowed, cap)."""
     errs = torch.stack([torch.as_tensor(errors(
         plain_run(sc, st, ctl, n_sub, seed)[0], ref)) for seed in range(runs)])
+    return bound_from_runs(errs, tol, factor)
+
+
+def bound_from_runs(errs, tol, factor=2.0):
+    """`noise_bound`'s (bound, spread, allowed, cap) from ``errs``, each
+    noisy run's per-env error against the reference, (runs, N)."""
+    runs = errs.shape[0]
     spread = errs.max(0).values
     allowed, cap = 0, 1.0
     for k in range(runs):
@@ -318,3 +335,94 @@ def noise_bound(sc, st, ctl, n_sub, ref, errors, tol, runs=8, factor=2.0):
             allowed = max(allowed, int(out.sum()))
             cap = max(cap, float((errs[k][out] / others[out]).max()))
     return torch.clamp(factor * spread, min=tol), spread, allowed, cap
+
+
+# the push-primitive scenes: each object's (x, y) in the 'drop' state
+_PRIM_XY = {('slot', 'cube'): np.array([[-0.60, 0.06], [-0.46, -0.07]],
+                                        np.float32),
+            ('rectangle',): np.array([[-0.55, 0.0]], np.float32)}
+# the objects rest at z 0.035 on the plate (plane z 0.02)
+_PRIM_Z = 0.035
+
+
+@functools.lru_cache(maxsize=None)
+def primitive_rest():
+    """The push-primitive family's rest pose (IK to the tip start (-0.52,
+    0, 0.25), as `KukaEnvBase` derives it), numpy (7,)."""
+    from pybullet_multigoal_gym_tpu_torch.ops import ik
+    return n(ik.solve(t([-0.52, 0.0, 0.25]), q_init=t(KM.KUKA_REST_POSE)))
+
+
+def _yaw_tilt(rng, shape, yaw, tilt):
+    """Unit quaternions (numpy wxyz): a yaw in [-yaw, yaw] and a tilt of up
+    to ``tilt`` about a random horizontal axis."""
+    a = rng.uniform(-yaw, yaw, shape).astype(np.float32) * 0.5
+    qz = np.stack([np.cos(a), 0 * a, 0 * a, np.sin(a)], -1)
+    qt = _tilted(rng, shape, tilt) * np.array([1, 1, 1, 0], np.float32)
+    qt /= np.linalg.norm(qt, axis=-1, keepdims=True)
+    w1, x1, y1, z1 = np.moveaxis(qt, -1, 0)
+    w2, x2, y2, z2 = np.moveaxis(qz, -1, 0)
+    q = np.stack([w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+                  w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+                  w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+                  w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2], -1)
+    return (q / np.linalg.norm(q, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def primitive_inputs(keys, kind, count, seed=0):
+    """Physics state and controls (numpy) for a push-primitive scene
+    (``keys``: ('slot', 'cube') or ('rectangle',)), as a primitive drives
+    it: the fingers at their limit (the pads together), the arm servoing.
+    'drop': the objects a few mm above the plate, turned and slightly
+    tilted, the arm at the family's rest pose. 'press' (slot and cube): the
+    cube in the slot's mouth within 1 mm of its three inner faces, the
+    finger pads against its back, the arm pushing it in (toward +x):
+    finger-box and box-box lanes, those of the slot's side geoms among
+    them, act."""
+    from pybullet_multigoal_gym_tpu_torch.ops import ik
+    rng = np.random.default_rng(seed)
+
+    def u(lo, hi, shape):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    nb = len(keys)
+    rest = primitive_rest()
+    st = mk_state(False, count, seed)
+    z3 = np.zeros((count, nb, 3), np.float32)
+    st.update(q=np.tile(rest, (count, 1)),
+              fq=np.full((count, 2), KM.FINGER_LIMIT, np.float32),
+              body_linvel=z3, body_angvel=z3.copy())
+    ctl = mk_controls(count)
+    ctl.update(q_target=st['q'].copy(),
+               f_target=np.full((count, 2), KM.FINGER_LIMIT, np.float32))
+    if kind == 'drop':
+        xy = _PRIM_XY[keys][None] + u(-0.02, 0.02, (count, nb, 2))
+        st.update(body_pos=np.concatenate(
+            [xy, _PRIM_Z + u(0.001, 0.005, (count, nb, 1))], -1),
+            body_quat=_yaw_tilt(rng, (count, nb), np.pi, 0.02))
+        return st, ctl
+    assert keys == ('slot', 'cube'), keys
+    slot = np.array([-0.55, 0.0, _PRIM_Z], np.float32) + np.concatenate(
+        [u(-0.01, 0.01, (count, 2)), u(0.0, 0.0005, (count, 1))], -1)
+    # the mouth is 0.03 wide between the prongs, the cube 0.03: it sits
+    # 0.03 m behind the slot's origin, against the base bar
+    cube = slot + np.concatenate([-0.03 - u(0.0, 0.001, (count, 1)),
+                                  u(-0.0005, 0.0005, (count, 1)),
+                                  u(0.0, 0.0005, (count, 1))], -1)
+    st.update(body_pos=np.stack([slot, cube], 1),
+              body_quat=_yaw_tilt(rng, (count, nb), 0.02, 0.005),
+              body_linvel=np.concatenate(
+                  [z3[:, :1], np.concatenate([u(0.0, 0.02, (count, 1, 1)),
+                                              z3[:, 1:, :2]], -1)], 1))
+    # the pads (0.025 deep, 0.0125 half) behind the cube's back face
+    tip = cube + np.concatenate([-0.0275 + u(0.0, 0.001, (count, 1)),
+                                 u(-0.002, 0.002, (count, 1)),
+                                 np.full((count, 1), 0.05 - _PRIM_Z,
+                                         np.float32)], -1)
+    rest_t = t(rest).expand(count, 7)
+    q = ik.solve(t(tip), q_init=rest_t, rest_pose=rest_t)
+    push = ik.solve(t(tip + np.array([0.02, 0.0, 0.0], np.float32)),
+                    q_init=q, rest_pose=rest_t, num_iters=16)
+    st.update(q=n(q), qd=u(-0.05, 0.05, (count, 7)))
+    ctl.update(q_target=n(push))
+    return st, ctl
