@@ -300,56 +300,89 @@ PRIM_FLAT = ((2, 1e-4), (PRIM_SUBSTEPS, 2e-3))
 def main_path_check(phase, sc, w, c, n_fields, substeps=FLAT, **tag):
     """A control-step kernel against its plain version on a main path's own
     inputs ``c`` (main_path_inputs), after ``substeps``: every env within
-    the flat bound (FLAT). Where an env parts by more (a pad pushes an
-    object, or the slot rocks on the plate; the plain version's own noisy
-    runs part by more too), that env is held to its noise bound
-    (tests/torch_common.py:noise_bound) with the allowance the noisy runs
-    set (`allowance`): none beyond it where no noisy run lies beyond the
-    other runs' bound. Returns the largest error."""
+    the flat bound (FLAT). Where an env parts by more (the fingers push a
+    block, and the plain version's own noisy runs part by more too), that
+    env is held to its noise bound (tests/torch_common.py:noise_bound) and
+    none may lie beyond it. Returns the largest error."""
     worst = 0.0
-    inputs = 'main path, step %d' % c['step']
-    if 'sub_target' in c:
-        inputs += ', sub-target %d' % c['sub_target']
     for n_sub, tol in substeps:
         out, ref, active, e = compare(sc, w, c['phys'], c['controls'],
                                       n_fields, n_sub)
-        noise = (allowance(sc, noise_check(sc, c['phys'], c['controls'],
-                                           n_sub, ref, n_fields, tol))
+        noise = (noise_check(sc, c['phys'], c['controls'], n_sub, ref,
+                             n_fields, tol)[:2] + (0, 1.0)
                  if e.max() > tol else None)
-        held(phase, sc, n_sub, tol, out, e, active, noise, inputs=inputs,
-             **tag)
+        held(phase, sc, n_sub, tol, out, e, active, noise,
+             inputs=main_path_name(c), **tag)
         worst = max(worst, float(e.max()))
     return worst
+
+
+def main_path_name(c):
+    name = 'main path, step %d' % c['step']
+    return name + (', sub-target %d' % c['sub_target']
+                   if 'sub_target' in c else '')
+
+
+def forced_check(phase, sc, w, c, n_fields, n_sub, tol=1e-4, **tag):
+    """K3 against its plain version in every substep of a main path's own
+    control step ``c``, each from the plain version's own state: the plain
+    trajectory's state before each of ``n_sub`` substeps, all given to the
+    kernel in one launch of one substep, and each env's state after it
+    within ``tol`` of the plain trajectory's next state, in every env and
+    substep (``envs`` in the line counts env-substeps). A free run of the
+    push primitive's 80 substeps is chaotic (the slot rocks on the plate,
+    and where a rocking corner lands is settled on the last bit), so after
+    it an env can lie beyond the plain version's noise bound while the
+    arithmetic of every substep agrees; this check holds that arithmetic
+    with no noise bound, and `free_reading` prints the free run."""
+    import torch
+    from pybullet_multigoal_gym_tpu_torch.ops import multibody_plain as MP
+    ctl, states = c['controls'], [c['phys']]
+    for _ in range(n_sub):
+        states.append(MP.control_step(sc, states[-1], ctl, 1))
+
+    def stack(xs):      # NamedTuples of (N, ...) -> one of (len(xs) N, ...)
+        return type(xs[0])(*(torch.cat(f) for f in zip(*xs)))
+
+    out, _, active, e = compare(sc, w, stack(states[:-1]),
+                                stack([ctl] * n_sub), n_fields, 1)
+    held(phase, sc, 1, tol, out, e, active, None, inputs=main_path_name(c),
+         from_plain_trajectory_substeps=n_sub, **tag)
+
+
+def free_reading(phase, sc, w, c, n_fields, n_sub, tol, **tag):
+    """The free run beside `forced_check`: the kernel's and the plain
+    version's ``n_sub`` substeps from ``c``, each env against the flat
+    bound ``tol`` and its noise bound, printed and not held (`held` with
+    ``gate`` off)."""
+    out, ref, active, e = compare(sc, w, c['phys'], c['controls'], n_fields,
+                                  n_sub)
+    noise = noise_check(sc, c['phys'], c['controls'], n_sub, ref, n_fields,
+                        tol)[:2] + (0, 1.0)
+    held(phase, sc, n_sub, tol, out, e, active, noise, gate=False,
+         inputs=main_path_name(c), **tag)
 
 
 def stress_check(phase, sc, w, st, ctl, n_fields, substeps=FLAT, **tag):
     """A control-step kernel against its plain version on a stress state
     after ``substeps``: each env within the flat bound or SPREAD_FACTOR
     times its spread over N_NOISE plain runs with 1-ulp noise
-    (tests/torch_common.py:noise_bound), whichever is larger, with the
-    allowance the noisy runs set (`allowance`)."""
+    (tests/torch_common.py:noise_bound), whichever is larger. K2: no env
+    beyond it. K3 (block piles, where a pad and a block face lie nearly
+    parallel and the SAT axis choice is a tie, and the pads pressing the
+    cube into the slot): as many envs as a noisy plain run itself puts
+    beyond the other runs' bound, each within the largest share of that
+    bound such a run reaches."""
+    from pybullet_multigoal_gym_tpu_torch.ops import dynamics as D
     for n_sub, tol in substeps:
         out, ref, active, e = compare(sc, w, st, ctl, n_fields, n_sub)
-        noise = allowance(sc, noise_check(sc, st, ctl, n_sub, ref, n_fields,
-                                          tol))
+        noise = noise_check(sc, st, ctl, n_sub, ref, n_fields, tol)
+        if not isinstance(sc, D.MultiBodyConsts):
+            noise = noise[:2] + (0, 1.0)
         held(phase, sc, n_sub, tol, out, e, active, noise, **tag)
         if tag.get('inputs') == 'sphere' and not active['sphere-plane'] > 0:
             raise AssertionError('the sphere state activates no sphere-plane '
                                  'lane: %s' % active)
-
-
-def allowance(sc, noise):
-    """noise_check's (bound, spread, allowed, cap) as the checks apply it.
-    K2: no env beyond its bound. K3: as many envs as a noisy plain run
-    itself puts beyond the other runs' bound, each within the largest share
-    of that bound such a run reaches, and none where no noisy run leaves
-    the others' bound. K3's scenes hold contact decisions that the last bit
-    settles: in block piles a pad and a block face lie nearly parallel and
-    the SAT axis choice is a tie; the push primitives' slot rocks on the
-    plate at rest (in the JAX package's XLA engine too) and when a rocking
-    corner lands is decided on the last bit."""
-    from pybullet_multigoal_gym_tpu_torch.ops import dynamics as D
-    return noise if isinstance(sc, D.MultiBodyConsts) else noise[:2] + (0, 1.0)
 
 
 def compare(sc, w, st, ctl, n_fields, n_sub):
@@ -370,9 +403,10 @@ def noise_check(sc, st, ctl, n_sub, ref, n_fields, tol):
                        SPREAD_FACTOR)
 
 
-def held(phase, sc, n_sub, tol, out, e, active, noise, **tag):
-    """Emit a kernel check's line and fail it: ``noise`` is None (every env
-    held to ``tol``) or (bound, spread, allowed, cap) from noise_check."""
+def held(phase, sc, n_sub, tol, out, e, active, noise, gate=True, **tag):
+    """Emit a kernel check's line and, with ``gate``, fail it: ``noise`` is
+    None (every env held to ``tol``) or (bound, spread, allowed, cap) from
+    noise_check."""
     import torch
     from pybullet_multigoal_gym_tpu_torch.ops import dynamics as D
     bound, spread, allowed, cap = noise or (torch.full_like(e, tol), None,
@@ -389,7 +423,7 @@ def held(phase, sc, n_sub, tol, out, e, active, noise, **tag):
          max_share_of_env_bound=float(share.max()),
          envs_beyond_env_bound=int(beyond.numel()), lanes_active=active,
          max_ee_force=float(out.ee_contact_force.abs().max()))
-    if beyond.numel() > allowed or share.max() > cap:
+    if gate and (beyond.numel() > allowed or share.max() > cap):
         b = beyond[:8]
         raise AssertionError(
             '%s (%s, %d substeps) disagrees with its plain version in envs '
@@ -488,21 +522,18 @@ def phase_multibody(kernels, captured, count_lib):
       held to its noise bound (`main_path_check`). ``lanes_active`` says
       which lane groups act.
     - The primitive main path's own inputs (primitive_push_assemble, step
-      1 at 1024 envs, the sub-target with the most pads on an object) after
-      2 and 80 substeps, by `main_path_check`: the slot rocks on the plate
-      and the noisy runs part in hundreds of envs.
+      1 at 1024 envs, the sub-target with the most pads on an object):
+      `main_path_check` after 2 substeps, and in each of the 80 substeps
+      from the plain trajectory's state (`forced_check`); the free run's
+      80 substeps are printed (`free_reading`). See `phase_primitive_k3`.
     - The stress states (``K3_STRESS``: the block pile the fingers squeeze,
       and a wrist or elbow sphere on the table under joint control; the
       primitive's 'press' state, tests/torch_common.py:primitive_inputs,
       where the pads push the cube into the slot's mouth so that the
       box-box lanes of the slot's side geoms act): each env within the flat
       bound or SPREAD_FACTOR times its spread over N_NOISE noisy plain
-      runs, whichever is larger (`stress_check`).
-
-    Beyond its noise bound, on every input, an env of K3 may lie only as
-    `allowance` says: as many envs, and as far, as a noisy run itself lies
-    beyond the others' bound (a branch of a contact decision that no other
-    noisy run takes), and none where no noisy run does.
+      runs, whichever is larger, with the count and cap of envs beyond it
+      that `stress_check` allows K3.
 
     Timed on both block main paths' step-26 inputs (100 substeps) and on
     the primitive's contact sub-target (80): the kernel alone on inputs
@@ -515,8 +546,7 @@ def phase_multibody(kernels, captured, count_lib):
     from pybullet_multigoal_gym_tpu_torch.ops.cuda_multibody import (
         CudaMultiBodyEngine, n_rows, pack, scene_key)
     from tests.kernel_ops import multibody_ops
-    from tests.torch_common import (multi_inputs, primitive_inputs,
-                                    torch_controls, torch_state)
+    from tests.torch_common import multi_inputs, torch_controls, torch_state
     worst = 0.0
     for task in ('block_rearrange', 'block_stack'):
         for c in captured[task]:
@@ -532,16 +562,7 @@ def phase_multibody(kernels, captured, count_lib):
         stress_check('k3_vs_plain', sc, CudaMultiBodyEngine(sc),
                      torch_state(st, 'cuda'), torch_controls(ctl, 'cuda'),
                      N_FIELDS, blocks=nb, control=control, inputs=kind)
-    c = captured['primitive'][-1]
-    main_path_check('k3_vs_plain', c['scene'], CudaMultiBodyEngine(c['scene']),
-                    c, N_FIELDS, substeps=PRIM_FLAT,
-                    task='primitive_push_assemble', control='ee')
-    sc = c['scene']
-    st, ctl = primitive_inputs(('slot', 'cube'), 'press', PRIM_ENVS)
-    stress_check('k3_vs_plain', sc, CudaMultiBodyEngine(sc),
-                 torch_state(st, 'cuda'), torch_controls(ctl, 'cuda'),
-                 N_FIELDS, substeps=PRIM_FLAT, task='primitive_push_assemble',
-                 control='ee', inputs='press')
+    phase_primitive_k3(captured['primitive'][-1])
 
     res = {}
     timed = [(task, captured[task][-1], 100)
@@ -563,9 +584,7 @@ def phase_multibody(kernels, captured, count_lib):
                          bound_ms=b_ms, bound_by=b_by, ops=ops)
         mangled = 'ILi%dELi%dELj%dELi%dELy%dELi%dEE' % scene_key(sc)
         emit('k3_timing', task=task, bodies=sc.nb, geoms=sc.ng,
-             inputs=('main path, step %d' % c['step']
-                     + (', sub-target %d' % c['sub_target']
-                        if 'sub_target' in c else '')),
+             inputs=main_path_name(c),
              substeps=n_sub, envs=n, lanes=len(MP.lane_plan(sc)),
              launches_per_env_step=(PRIM_LAUNCHES if 'sub_target' in c
                                     else 1), **res[task],
@@ -573,6 +592,32 @@ def phase_multibody(kernels, captured, count_lib):
                     if mangled in p['function']])
     res['block_rearrange']['max_abs_err'] = worst
     return res
+
+
+def phase_primitive_k3(c):
+    """K3 on the primitive's main path ``c`` and its 'press' stress state.
+    After 2 substeps every env of the main path lies within 1e-4 or its
+    noise bound (`main_path_check`). After 80 free substeps the slot, which
+    rocks on the plate, parts hundreds of envs of the plain version's own
+    noisy runs, and the kernel's run can land beyond their bound in an env
+    or two; so the 80 substeps are held one at a time, each from the plain
+    trajectory's state, every env within 1e-4 (`forced_check`), and the
+    free run's reading is printed beside it (`free_reading`)."""
+    from pybullet_multigoal_gym_tpu_torch.ops.cuda_multibody import (
+        CudaMultiBodyEngine)
+    from tests.torch_common import (primitive_inputs, torch_controls,
+                                    torch_state)
+    sc, tag = c['scene'], dict(task='primitive_push_assemble', control='ee')
+    w = CudaMultiBodyEngine(sc)
+    main_path_check('k3_vs_plain', sc, w, c, N_FIELDS, substeps=PRIM_FLAT[:1],
+                    **tag)
+    forced_check('k3_vs_plain', sc, w, c, N_FIELDS, PRIM_SUBSTEPS, **tag)
+    free_reading('k3_free_run_reading', sc, w, c, N_FIELDS, *PRIM_FLAT[1],
+                 **tag)
+    st, ctl = primitive_inputs(('slot', 'cube'), 'press', PRIM_ENVS)
+    stress_check('k3_vs_plain', sc, w, torch_state(st, 'cuda'),
+                 torch_controls(ctl, 'cuda'), N_FIELDS, substeps=PRIM_FLAT,
+                 inputs='press', **tag)
 
 
 def phase_multi_main(torch, port):
@@ -697,39 +742,14 @@ def phase_primitive_main(torch, port):
     return res
 
 
-class _Noisy:
-    """Stands in for an env's K3 wrapper: each control step runs one substep
-    per launch, and before each substep every element of the state moves
-    by -1, 0 or +1 ulp (seeded), as tests/torch_common.py:plain_run's noisy
-    runs move the plain version's."""
-
-    def __init__(self, inner, seed):
-        import torch
-        self.inner = inner
-        self.g = torch.Generator(device='cuda').manual_seed(seed)
-
-    def control_step(self, phys, controls, n_substeps):
-        from tests.torch_common import nudge
-        for _ in range(n_substeps):
-            phys = phys._replace(**{f: nudge(getattr(phys, f), self.g)
-                                    for f in CARRY})
-            phys = self.inner.control_step(phys, controls, 1)
-        return phys
-
-
-# the state fields a substep carries (tests/torch_common.py:plain_run)
-CARRY = ('q', 'qd', 'fq', 'fqd', 'body_pos', 'body_quat', 'body_linvel',
-         'body_angvel')
-
-
-def obs_poses(torch, obs):
-    """The primitive observation's object poses, each ZYZ Euler triplet
-    replaced by its rotation (a unit quaternion, w >= 0): the triplet is
-    singular for a flat object (beta 0), where alpha and gamma are each
-    arbitrary and only their sum is defined, so a last-bit tilt turns them
-    by up to 2 pi."""
+def as_quat(torch, poses):
+    """Poses (N, 6k: positions and ZYZ Euler angles, as the primitive's
+    observation and goal hold them), each Euler triplet replaced by its
+    rotation (a unit quaternion, w >= 0): the triplet is singular for a
+    flat object (beta 0), where alpha and gamma are each arbitrary and only
+    their sum is defined, so a last-bit tilt turns them by up to 2 pi."""
     from pybullet_multigoal_gym_tpu_torch.maths import quat as Q
-    o = obs.reshape(obs.shape[0], -1, 6)
+    o = poses.reshape(poses.shape[0], -1, 6)
     q = Q.euler_zyz_to_quat(o[..., 3:])
     q = torch.where(q[..., :1] < 0, -q, q)
     return torch.cat([o[..., :3], q], -1).flatten(1)
@@ -738,55 +758,36 @@ def obs_poses(torch, obs):
 def primitive_plain_check(torch, port, state, envs=16, tol=5e-3):
     """The kernels' path against the plain path over one primitive step:
     the first ``envs`` envs of ``state`` stepped once on the card and on the
-    CPU from one state, their object poses compared (`obs_poses`). Every
-    env within ``tol``; where one parts by more (a pad pushes an object, and
-    1600 substeps of contact decisions part), it is held to its noise
-    bound: the larger of ``tol`` and SPREAD_FACTOR times its spread over
-    N_NOISE kernel paths with 1-ulp noise in every substep (`_Noisy`), with
-    K3's allowance (`allowance`)."""
+    CPU from one state. The object poses (the observation), the goal the
+    step regenerates (desired_goal), both with rotations as quaternions
+    (`as_quat`), and the reward: every env within ``tol``."""
     from pybullet_multigoal_gym_tpu_torch import interop
-    from tests.torch_common import bound_from_runs
     leaves = {k: v[:envs] for k, v in interop.state_to_numpy(state).items()}
     g = torch.Generator().manual_seed(5)
-    poses = {}
+    out = {}
     for dev in ('cuda', 'cpu'):
         e = port.make_vec_env(num_envs=envs, task='primitive_push_assemble',
                               primitive='discrete_push', device=dev)
         if dev == 'cuda':
             action = actions(torch, e, g, (envs,))
-            kernel_env = e
         s = interop.state_from_numpy(leaves, device=dev)
-        _, o, _, _, _ = e.step(s, action.to(dev))
-        poses[dev] = obs_poses(torch, o['observation']).cpu()
-    err = (poses['cuda'] - poses['cpu']).abs().max(1).values
+        _, o, reward, _, _ = e.step(s, action.to(dev))
+        out[dev] = dict(observation=as_quat(torch, o['observation']).cpu(),
+                        desired_goal=as_quat(torch, o['desired_goal']).cpu(),
+                        reward=reward[:, None].cpu())
+    err = {k: (v - out['cpu'][k]).abs().max(1).values
+           for k, v in out['cuda'].items()}
+    worst = max(float(v.max()) for v in err.values())
     res = dict(task='primitive_push_assemble', envs=envs, steps=1,
-               compared='object positions and rotations', tol=tol,
-               max_abs_err=float(err.max()),
-               envs_beyond_tol=int((err > tol).sum()))
-    if err.max() > tol:
-        engine = kernel_env.core.engine
-        runs = []
-        for seed in range(N_NOISE):
-            kernel_env.core.engine = _Noisy(engine, seed)
-            _, o, _, _, _ = kernel_env.step(
-                interop.state_from_numpy(leaves, device='cuda'),
-                action.to('cuda'))
-            runs.append((obs_poses(torch, o['observation']).cpu()
-                         - poses['cuda']).abs().max(1).values)
-        kernel_env.core.engine = engine
-        bound, spread, allowed, cap = allowance(
-            kernel_env.core.scene,
-            bound_from_runs(torch.stack(runs), tol, SPREAD_FACTOR))
-        share = err / bound
-        res.update(noise_max_spread=float(spread.max()),
-                   envs_beyond_allowed=allowed, share_allowed=cap,
-                   max_share_of_env_bound=float(share.max()),
-                   envs_beyond_env_bound=int((share > 1).sum()))
-        if int((share > 1).sum()) > allowed or share.max() > cap:
-            emit('primitive_vs_plain', **res)
-            raise AssertionError('primitive_push_assemble: the kernel path '
-                                 'disagrees with the plain path: %s' % res)
+               compared='object poses and desired_goal with rotations as '
+                        'quaternions, and the reward', tol=tol,
+               max_abs_err={k: float(v.max()) for k, v in err.items()},
+               envs_beyond_tol=int((torch.stack(list(err.values())) > tol)
+                                   .any(0).sum()))
     emit('primitive_vs_plain', **res)
+    if not worst <= tol:
+        raise AssertionError('primitive_push_assemble: the kernel path '
+                             'disagrees with the plain path: %s' % res)
 
 
 def phase_main(torch, port):

@@ -284,7 +284,9 @@ def plain_run(sc, st, ctl, n_sub, noise_seed=None):
             for grp, a in lanes:
                 active[grp] = active.get(grp, False) | (a > 0)
         else:
-            carry = tuple(nudge(x, g) for x in carry)
+            carry = tuple(torch.nextafter(x, x + torch.randint(
+                -1, 2, x.shape, generator=g, device=x.device).to(x.dtype))
+                for x in carry)
         if multi:
             carry, ee = MP.substep(sc, carry, ctl.q_target, ctl.f_target)
         else:
@@ -295,13 +297,6 @@ def plain_run(sc, st, ctl, n_sub, noise_seed=None):
     out = st._replace(q=q, qd=qd, fq=fq, fqd=fqd, body_pos=bp, body_quat=bq,
                       body_linvel=bv, body_angvel=bw, ee_contact_force=ee)
     return out, {k: float(v.float().mean()) for k, v in sorted(active.items())}
-
-
-def nudge(x, g):
-    """``x`` with every element moved by -1, 0 or +1 ulp, drawn from
-    generator ``g``."""
-    return torch.nextafter(x, x + torch.randint(
-        -1, 2, x.shape, generator=g, device=x.device).to(x.dtype))
 
 
 def noise_bound(sc, st, ctl, n_sub, ref, errors, tol, runs=8, factor=2.0):
@@ -318,13 +313,6 @@ def noise_bound(sc, st, ctl, n_sub, ref, errors, tol, runs=8, factor=2.0):
     spread, allowed, cap)."""
     errs = torch.stack([torch.as_tensor(errors(
         plain_run(sc, st, ctl, n_sub, seed)[0], ref)) for seed in range(runs)])
-    return bound_from_runs(errs, tol, factor)
-
-
-def bound_from_runs(errs, tol, factor=2.0):
-    """`noise_bound`'s (bound, spread, allowed, cap) from ``errs``, each
-    noisy run's per-env error against the reference, (runs, N)."""
-    runs = errs.shape[0]
     spread = errs.max(0).values
     allowed, cap = 0, 1.0
     for k in range(runs):
