@@ -13,11 +13,14 @@ envs, 60 steps across one auto-reset) and block_stack with 5 (1024 envs) on
 K1 and K3, and the push primitives (primitive_push_assemble with
 discrete_push and primitive_push_reach with continuous_push, 1024 envs: 20
 K1 launches at 16 iterations and 20 K3 launches of 80 substeps per step) on
-K1 and K3's bodies of several geoms. One JSON line per check or phase; the
-kernels line, the card's name and power limit, and as the last line
-``{"ok": true, "device": {...}}``. Stops at the first failure with a
-non-zero exit and no result; exits non-zero without a CUDA device or without
-the package beside it. Imports nothing of JAX.
+K1 and K3's bodies of several geoms, and insertion (1024 envs, 60 steps
+across one auto-reset: K1 toward a rotation target, K3 with a pinned body)
+on K1 and K3's pinned-body lanes. One JSON line per check or phase, each
+with the ``seconds`` since the line before it; the kernels line, the card's
+name and power limit, and as the last line ``{"ok": true, "device":
+{...}}``. Stops at the first failure with a non-zero exit and no result;
+exits non-zero without a CUDA device or without the package beside it.
+Imports nothing of JAX.
 """
 
 import json
@@ -34,13 +37,22 @@ STACK_ENVS, STACK_STEPS, STACK_TIMED_FROM = 1024, 20, 5
 # the push primitives too; one step is 20 sub-targets of 80 substeps each
 PRIM_ENVS, PRIM_STEPS, PRIM_TIMED_FROM = 1024, 12, 2
 PRIM_SUBSTEPS, PRIM_LAUNCHES = 80, 20
+# insertion runs at 1024 envs (the README's configuration)
+INS_ENVS, INS_STEPS, INS_TIMED_FROM = 1024, MAIN_STEPS, TIMED_FROM
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 (non-tensor)
 # operations/s; a card below 700 W runs slower than these
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 
 
+_LAST_LINE = [time.perf_counter()]
+
+
 def emit(phase, **kw):
-    print(json.dumps(dict(phase=phase, **kw)), flush=True)
+    """One JSON line, with the seconds since the line before it."""
+    now = time.perf_counter()
+    print(json.dumps(dict(phase=phase, **kw,
+                          seconds=now - _LAST_LINE[0])), flush=True)
+    _LAST_LINE[0] = now
 
 
 def run(cmd):
@@ -95,8 +107,10 @@ def main_path_inputs(torch, port, task, at=(0, 25), seed=2, num_envs=N_ENVS,
                      **kw):
     """What K1 and the control-step kernel are given on a main path: a
     seeded drive of ``task`` at ``num_envs``, and at each step index in
-    ``at`` the IK target, its warm start and rest pose, the physics state
-    and the controls, taken as `VecMGEnv.step` makes them."""
+    ``at`` the IK target (position, and orientation where the task
+    controls it), its warm start and rest pose, the physics state and the
+    controls, taken as `VecMGEnv.step` makes them."""
+    from pybullet_multigoal_gym_tpu_torch.maths import quat as Q
     from pybullet_multigoal_gym_tpu_torch.ops import dynamics as D
     env = port.make_vec_env(num_envs=num_envs, task=task, seed=seed, **kw)
     core = env.core
@@ -111,6 +125,9 @@ def main_path_inputs(torch, port, task, at=(0, 25), seed=2, num_envs=N_ENVS,
             zero = dec.phys.door_q
             out.append(dict(
                 step=i + 1, target=dec.ee_target, q_init=dec.phys.q, rest=rest,
+                target_quat=(Q.euler_zyz_to_quat(dec.ee_target_rot)
+                             if env.cfg.end_effector_rotation_control
+                             else None),
                 phys=dec.phys, scene=core.scene, controls=D.Controls(
                     q_target=core.arm_targets(dec), f_target=f_target,
                     door_motor_on=zero > 0, door_target=zero)))
@@ -185,11 +202,13 @@ def primitive_name(c):
 def phase_ik(captured, count_lib):
     """K1 against ops/ik.py:solve on the card: 4096 targets from the IK
     workspace box at 8 and 40 iterations, the main path's own inputs
-    (push and reach) at its 8, and the primitive main path's own inputs
-    (1024 envs) at its 16. The kernel alone is timed on inputs packed once
-    (``ms``), and the wrapper's whole call beside it (``call_ms``), on push's
-    and the primitive's inputs; its operations are counted on the same
-    inputs."""
+    (push and reach) at its 8, the primitive main path's own inputs (1024
+    envs) at its 16, and insertion's (1024 envs) at its 8, toward the
+    orientation of the ZYZ accumulator. The kernel alone is timed on inputs
+    packed once (``ms``), and the wrapper's whole call beside it
+    (``call_ms``), on push's, the primitive's and insertion's inputs; its
+    operations are counted on the same inputs. Returns push's figures, with
+    insertion's under 'insertion'."""
     import numpy as np
     import torch
     from pybullet_multigoal_gym_tpu_torch.envs.shape_assemble import (
@@ -203,30 +222,34 @@ def phase_ik(captured, count_lib):
     tgt = t(workspace_targets(rng, N_ENVS), 'cuda')
     rest = t(KM.KUKA_REST_POSE, 'cuda').expand(N_ENVS, 7)
     q0 = rest + t(rng.uniform(-0.2, 0.2, (N_ENVS, 7)), 'cuda')
-    cases = [('workspace box', 8, tgt, q0, rest),
-             ('workspace box', 40, tgt, q0, rest)]
+    cases = [('workspace box', 8, tgt, None, q0, rest),
+             ('workspace box', 40, tgt, None, q0, rest)]
     for task, inputs in captured.items():
         for c in inputs:
             if task == 'primitive':
                 cases.append((primitive_name(c), PRIMITIVE_IK_ITERS,
-                              c['target'], c['q_init'], c['rest']))
-            elif c['target'].shape[0] == N_ENVS:
+                              c['target'], None, c['q_init'], c['rest']))
+            elif c['target'].shape[0] == N_ENVS or task == 'insertion':
                 cases.append(('%s main path, step %d' % (task, c['step']), 8,
-                              c['target'], c['q_init'], c['rest']))
-    worst, kernel_ms = 0.0, {}
-    for name, iters, tg, q, r in cases:
+                              c['target'], c['target_quat'], c['q_init'],
+                              c['rest']))
+    worst, worst_ins, kernel_ms = 0.0, 0.0, {}
+    for name, iters, tg, tq, q, r in cases:
         w = CudaIK(num_iters=iters)
-        err = float((w.solve(tg, q_init=q, rest_pose=r)
-                     - ik.solve(tg, q_init=q, rest_pose=r, num_iters=iters)
-                     ).abs().max())
+        err = float((w.solve(tg, tq, q_init=q, rest_pose=r)
+                     - ik.solve(tg, tq, q_init=q, rest_pose=r,
+                                num_iters=iters)).abs().max())
         emit('k1_vs_plain', inputs=name, iters=iters, envs=tg.shape[0],
-             tol=1e-4, max_abs_err=err)
+             rotation_target=tq is not None, tol=1e-4, max_abs_err=err)
         if not err <= 1e-4:
             raise AssertionError('K1 (%s, %d iterations) disagrees with its '
                                  'plain version: %g' % (name, iters, err))
-        worst = max(worst, err)
+        if name.startswith('insertion'):
+            worst_ins = max(worst_ins, err)
+        else:
+            worst = max(worst, err)
         # the kernel alone, on inputs packed once (back-to-back launches)
-        packed = pack(tg, q_init=q, rest_pose=r)
+        packed = pack(tg, tq, rest_pose=r, q_init=q)
         out = torch.empty((7, tg.shape[0]), device='cuda')
         kernel_ms[name, iters] = time_ms(lambda: w.launch(packed, out), 50)
 
@@ -260,6 +283,22 @@ def phase_ik(captured, count_lib):
          plain_ms=time_ms(lambda: ik.solve(tg, q_init=q, rest_pose=r,
                                            num_iters=PRIMITIVE_IK_ITERS), 3),
          bound_ms=b_ms, bound_by=b_by, ops=ops)
+
+    # insertion's K1 call at step 26, toward a rotation target
+    c = captured['insertion'][-1]
+    name = 'insertion main path, step %d' % c['step']
+    tg, tq, q, r = c['target'], c['target_quat'], c['q_init'], c['rest']
+    w = CudaIK(num_iters=8)
+    ops, _ = ik_ops(count_lib, tg, tq, rest_pose=r, q_init=q, num_iters=8)
+    b_ms, b_by = bound_ms(INS_ENVS * (21 + 7) * 4, ops)
+    res['insertion'] = dict(
+        max_abs_err=worst_ins, ms=kernel_ms[name, 8],
+        call_ms=time_ms(lambda: w.solve(tg, tq, q_init=q, rest_pose=r), 50),
+        plain_ms=time_ms(lambda: ik.solve(tg, tq, q_init=q, rest_pose=r,
+                                          num_iters=8), 3),
+        bound_ms=b_ms, bound_by=b_by, ops=ops)
+    emit('k1_timing', inputs=name, iters=8, envs=INS_ENVS,
+         rotation_target=True, **res['insertion'])
     return res
 
 
@@ -369,11 +408,13 @@ def stress_check(phase, sc, w, st, ctl, n_fields, substeps=FLAT, **tag):
     times its spread over N_NOISE plain runs with 1-ulp noise
     (tests/torch_common.py:noise_bound), whichever is larger. K2: no env
     beyond it. K3 (block piles, where a pad and a block face lie nearly
-    parallel and the SAT axis choice is a tie, and the pads pressing the
-    cube into the slot): as many envs as a noisy plain run itself puts
-    beyond the other runs' bound, each within the largest share of that
-    bound such a run reaches."""
+    parallel and the SAT axis choice is a tie, the pads pressing the cube
+    into the slot, the insertion states): as many envs as a noisy plain
+    run itself puts beyond the other runs' bound, each within the largest
+    share of that bound such a run reaches. Returns, per lane group, the
+    largest share of envs where it acts over ``substeps``."""
     from pybullet_multigoal_gym_tpu_torch.ops import dynamics as D
+    shares = {}
     for n_sub, tol in substeps:
         out, ref, active, e = compare(sc, w, st, ctl, n_fields, n_sub)
         noise = noise_check(sc, st, ctl, n_sub, ref, n_fields, tol)
@@ -383,6 +424,9 @@ def stress_check(phase, sc, w, st, ctl, n_fields, substeps=FLAT, **tag):
         if tag.get('inputs') == 'sphere' and not active['sphere-plane'] > 0:
             raise AssertionError('the sphere state activates no sphere-plane '
                                  'lane: %s' % active)
+        for k, v in active.items():
+            shares[k] = max(shares.get(k, 0.0), v)
+    return shares
 
 
 def compare(sc, w, st, ctl, n_fields, n_sub):
@@ -534,11 +578,13 @@ def phase_multibody(kernels, captured, count_lib):
       bound or SPREAD_FACTOR times its spread over N_NOISE noisy plain
       runs, whichever is larger, with the count and cap of envs beyond it
       that `stress_check` allows K3.
+    - Insertion's main path and stress states, where the pinned-body lanes
+      act (`phase_insertion_k3`).
 
-    Timed on both block main paths' step-26 inputs (100 substeps) and on
-    the primitive's contact sub-target (80): the kernel alone on inputs
-    packed once (``ms``) and the wrapper's whole call (``call_ms``); the
-    operations are counted on the same inputs."""
+    Timed on both block main paths' and insertion's step-26 inputs (100
+    substeps) and on the primitive's contact sub-target (80): the kernel
+    alone on inputs packed once (``ms``) and the wrapper's whole call
+    (``call_ms``); the operations are counted on the same inputs."""
     import torch
     from pybullet_multigoal_gym_tpu_torch.ops import dynamics as D
     from pybullet_multigoal_gym_tpu_torch.ops import multibody_plain as MP
@@ -563,10 +609,11 @@ def phase_multibody(kernels, captured, count_lib):
                      torch_state(st, 'cuda'), torch_controls(ctl, 'cuda'),
                      N_FIELDS, blocks=nb, control=control, inputs=kind)
     phase_primitive_k3(captured['primitive'][-1])
+    ins_worst = phase_insertion_k3(captured['insertion'])
 
     res = {}
     timed = [(task, captured[task][-1], 100)
-             for task in ('block_rearrange', 'block_stack')]
+             for task in ('block_rearrange', 'block_stack', 'insertion')]
     timed.append(('primitive_push_assemble', captured['primitive'][-1],
                   PRIM_SUBSTEPS))
     for task, c, n_sub in timed:
@@ -582,7 +629,7 @@ def phase_multibody(kernels, captured, count_lib):
         b_ms, b_by = bound_ms(n * (2 * n_rows(sc.nb) + 11) * 4, ops)
         res[task] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by, ops=ops)
-        mangled = 'ILi%dELi%dELj%dELi%dELy%dELi%dEE' % scene_key(sc)
+        mangled = 'ILi%dELi%dELj%dELi%dELy%dELi%dELi%dEE' % scene_key(sc)
         emit('k3_timing', task=task, bodies=sc.nb, geoms=sc.ng,
              inputs=main_path_name(c),
              substeps=n_sub, envs=n, lanes=len(MP.lane_plan(sc)),
@@ -591,6 +638,7 @@ def phase_multibody(kernels, captured, count_lib):
              ptxas=[p for p in kernels['multibody'].ptxas
                     if mangled in p['function']])
     res['block_rearrange']['max_abs_err'] = worst
+    res['insertion']['max_abs_err'] = ins_worst
     return res
 
 
@@ -618,6 +666,49 @@ def phase_primitive_k3(c):
     stress_check('k3_vs_plain', sc, w, torch_state(st, 'cuda'),
                  torch_controls(ctl, 'cuda'), N_FIELDS, substeps=PRIM_FLAT,
                  inputs='press', **tag)
+
+
+# the lane groups a pinned body brings, each to act in the insertion stress
+# states (the edge lanes of the box-pinned group named apart)
+PINNED_GROUPS = ('box-pinned', 'box-pinned edge', 'finger-pinned',
+                 'sphere-pinned')
+
+
+def phase_insertion_k3(captured):
+    """K3 on insertion's main path (steps 1 and 26 of a seeded drive at
+    1024 envs, `main_path_check`) and its stress states
+    (tests/torch_common.py:insertion_inputs: 'load', the rectangle on the
+    slot's mouth between the squeezing pads, which rest on the prongs;
+    'slot_pressed', the rectangle driven into the slot's base bar and a
+    wrist sphere on its end bar; `stress_check`), where each group of
+    PINNED_GROUPS must act in some envs: their largest shares are
+    printed."""
+    from pybullet_multigoal_gym_tpu_torch.ops import dynamics as D
+    from pybullet_multigoal_gym_tpu_torch.ops import scene as S
+    from pybullet_multigoal_gym_tpu_torch.ops.cuda_multibody import (
+        CudaMultiBodyEngine)
+    from tests.torch_common import (insertion_inputs, torch_controls,
+                                    torch_state)
+    tag = dict(task='insertion', control='ee')
+    sc = D.multibody_consts(S.insertion_scene())
+    w = CudaMultiBodyEngine(sc)
+    worst = max(main_path_check('k3_vs_plain', sc, w, c, N_FIELDS, **tag)
+                for c in captured)
+    shares = {}
+    for kind in ('load', 'slot_pressed'):
+        st, ctl = insertion_inputs(kind, INS_ENVS)
+        shares[kind] = stress_check(
+            'k3_vs_plain', sc, w, torch_state(st, 'cuda'),
+            torch_controls(ctl, 'cuda'), N_FIELDS, inputs=kind, **tag)
+    acting = {g: {k: v.get(g, 0.0) for k, v in shares.items()}
+              for g in PINNED_GROUPS}
+    emit('k3_pinned_lanes_active', **tag, envs=INS_ENVS,
+         share_of_envs=acting)
+    idle = [g for g, v in acting.items() if not max(v.values()) > 0]
+    if idle:
+        raise AssertionError('no insertion stress state activates the '
+                             'lane groups %s: %s' % (idle, acting))
+    return worst
 
 
 def phase_multi_main(torch, port):
@@ -659,7 +750,7 @@ def drive(torch, port, task, steps, seed, num_envs=N_ENVS,
     state, obs = env.reset()
     g = torch.Generator(device='cuda').manual_seed(seed)
     acts = actions(torch, env, g, (steps, num_envs))
-    dims = {k: tuple(v.shape) for k, v in obs.items()}
+    dims = {k: tuple(v.shape) for k, v in obs_leaves(obs).items()}
     done_at = []
     finite = torch.ones((), dtype=torch.bool, device='cuda')
     core = env.core
@@ -676,14 +767,15 @@ def drive(torch, port, task, steps, seed, num_envs=N_ENVS,
         per_step['ik'].add(core.ik.launches - before[0])
         per_step['engine'].add(core.engine.launches - before[1])
         done_at.append(done)
-        for v in obs.values():
+        for v in obs_leaves(obs).values():
             finite &= torch.isfinite(v).all()
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0 if t0 is not None else None
     launches = dict(ik=core.ik.launches, engine=core.engine.launches)
     done_steps = [i + 1 for i, d in enumerate(done_at) if bool(d.any())]
     all_done = [i + 1 for i, d in enumerate(done_at) if bool(d.all())]
-    shapes_ok = {k: tuple(v.shape) for k, v in obs.items()} == dims
+    shapes_ok = {k: tuple(v.shape)
+                 for k, v in obs_leaves(obs).items()} == dims
     rate = (steps - timed_from) * num_envs / elapsed if elapsed else None
     return env, state, dict(task=task, **kw, envs=num_envs, steps=steps,
                             timed_steps=[timed_from + 1, steps] if elapsed
@@ -695,6 +787,18 @@ def drive(torch, port, task, steps, seed, num_envs=N_ENVS,
                             all_done_steps=all_done, obs_finite=bool(finite),
                             obs_shapes=dims, shapes_ok=shapes_ok,
                             env_steps_per_s=rate)
+
+
+def obs_leaves(obs):
+    """An observation's tensors by name, one level of dicts flattened
+    (insertion's ``subtask_rewards`` as 'subtask_rewards.pick_up', ...)."""
+    out = {}
+    for k, v in obs.items():
+        if isinstance(v, dict):
+            out.update(('%s.%s' % (k, kk), vv) for kk, vv in v.items())
+        else:
+            out[k] = v
+    return out
 
 
 def plain_path_check(torch, port, task, state, env, **kw):
@@ -790,6 +894,106 @@ def primitive_plain_check(torch, port, state, envs=16, tol=5e-3):
                              'disagrees with the plain path: %s' % res)
 
 
+# the JAX package's insertion observation, per env: (N,) + these
+INS_OBS_DIMS = {
+    'observation': (24,), 'policy_state': (17,),
+    'auxiliary_task_state': (12,), 'achieved_goal': (6,),
+    'desired_goal': (6,), 'subtask_rewards.pick_up': (),
+    'subtask_rewards.pick_up_done': (),
+    'subtask_rewards.pick_up_desired_goal': (4,),
+    'subtask_rewards.pick_up_achieved_goal': (4,),
+    'subtask_rewards.reach': (), 'subtask_rewards.reach_done': (),
+    'subtask_rewards.reach_desired_goal': (6,),
+    'subtask_rewards.reach_achieved_goal': (6,),
+    'subtask_rewards.insert': (), 'subtask_rewards.insert_done': (),
+    'subtask_rewards.insert_desired_goal': (6,),
+    'subtask_rewards.insert_achieved_goal': (6,)}
+
+
+def phase_insertion_main(torch, port):
+    """insertion at 1024 envs for INS_STEPS steps (auto-reset at step 50),
+    timed after the first INS_TIMED_FROM, with exactly one K1 and one K3
+    launch per step and the JAX package's observation shapes; then its
+    first 64 envs stepped once on the card and on the CPU from one state
+    (`insertion_plain_check`)."""
+    env, state, res = drive(torch, port, 'insertion', INS_STEPS, seed=0,
+                            num_envs=INS_ENVS, timed_from=INS_TIMED_FROM)
+    emit('insertion_path', card=card_line(), **res)
+    want = dict(ik=INS_STEPS, engine=INS_STEPS)
+    dims = {k: (INS_ENVS,) + d for k, d in INS_OBS_DIMS.items()}
+    if not (res['obs_finite'] and res['shapes_ok']
+            and res['obs_shapes'] == dims
+            and res['done_steps'] == [50] and res['all_done_steps'] == [50]
+            and res['launches'] == want):
+        raise AssertionError('insertion path check failed: %s' % res)
+    insertion_plain_check(torch, port, state)
+    return res
+
+
+def insertion_plain_check(torch, port, state, envs=64, tol=5e-3,
+                          away=0.01):
+    """The kernels' path against the plain path over one insertion step:
+    the first ``envs`` envs of ``state`` stepped once on the card and on
+    the CPU from one state. The physics state (positions, velocities,
+    rotations as unit quaternions with w >= 0) and the EE impulse (force x
+    dt): every env within ``tol``. The reward and the subtask done flags:
+    equal in every env whose goal distance lies ``tol`` or more from the
+    threshold and, for those that hold the rectangle's ZYZ Euler angles
+    (the reward, reach and insert), whose rectangle is ``away`` from the
+    angles' singularity in both paths (sin(beta / 2) >= ``away``: an
+    upright rectangle has beta 0, where alpha and gamma are each set by
+    the last bits of its tilt); the counts compared are printed."""
+    from pybullet_multigoal_gym_tpu_torch import interop
+    from pybullet_multigoal_gym_tpu_torch.ops import dynamics as D
+    leaves = {k: v[:envs] for k, v in interop.state_to_numpy(state).items()}
+    g = torch.Generator().manual_seed(5)
+    out = {}
+    for dev in ('cuda', 'cpu'):
+        e = port.make_vec_env(num_envs=envs, task='insertion', device=dev)
+        if dev == 'cuda':
+            action = actions(torch, e, g, (envs,))
+        s = interop.state_from_numpy(leaves, device=dev)
+        s, o, reward, _, _ = e.step(s, action.to(dev))
+        ph = s.phys
+        quat = torch.where(ph.body_quat[..., :1] < 0, -ph.body_quat,
+                           ph.body_quat)
+        sub = o['subtask_rewards']
+        out[dev] = dict(
+            state=torch.cat([ph.q, ph.qd, ph.fq, ph.fqd,
+                             ph.body_pos.flatten(1), quat.flatten(1),
+                             ph.body_linvel.flatten(1),
+                             ph.body_angvel.flatten(1),
+                             ph.ee_contact_force * D.DT_SUB], -1).cpu(),
+            tilt=torch.linalg.vector_norm(quat[:, 0, 1:3], dim=-1).cpu(),
+            dist=torch.stack([torch.linalg.vector_norm(
+                o['achieved_goal'] - o['desired_goal'], dim=-1),
+                -sub['pick_up'], -sub['reach'], -sub['insert']], -1).cpu(),
+            flags=torch.stack([reward < 0, sub['pick_up_done'],
+                               sub['reach_done'], sub['insert_done']],
+                              -1).cpu())
+    err = (out['cuda']['state'] - out['cpu']['state']).abs().max(1).values
+    sure = (out['cpu']['dist'] - e.cfg.distance_threshold).abs() >= tol
+    away_ok = torch.minimum(out['cuda']['tilt'], out['cpu']['tilt']) >= away
+    # pick_up holds no Euler angle; the reward, reach and insert do
+    compared = sure & torch.stack([away_ok, torch.ones_like(away_ok),
+                                   away_ok, away_ok], -1)
+    differ = (out['cuda']['flags'] != out['cpu']['flags']) & compared
+    names = ('reward', 'pick_up_done', 'reach_done', 'insert_done')
+    res = dict(task='insertion', envs=envs, steps=1,
+               compared='the physics state with rotations as quaternions '
+                        'and the EE impulse; the reward and the subtask '
+                        'done flags', tol=tol,
+               max_abs_err=float(err.max()),
+               envs_beyond_tol=int((err > tol).sum()),
+               envs_away_from_singularity=int(away_ok.sum()),
+               flags_compared=dict(zip(names, compared.sum(0).tolist())),
+               flags_differ=dict(zip(names, differ.sum(0).tolist())))
+    emit('insertion_vs_plain', **res)
+    if not (float(err.max()) <= tol and not differ.any()):
+        raise AssertionError('insertion: the kernel path disagrees with the '
+                             'plain path: %s' % res)
+
+
 def phase_main(torch, port):
     """The main path: push@4096 for 60 steps (auto-reset at step 50), then
     the same 64 envs stepped once on the card and on the CPU from one state,
@@ -841,12 +1045,10 @@ def main():
     # them the host build that counts the kernels' operations
     from tests import kernel_ops
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
-    t0 = time.perf_counter()
     counting = kernel_ops.build(_build.BUILD_DIR / 'count', start_only=True)
     kernels = _build.build_all()
     count_lib = kernel_ops.load(counting)
-    emit('build', seconds=time.perf_counter() - t0,
-         kernels={k: dict(source=str(v.path.name), ptxas=v.ptxas)
+    emit('build', kernels={k: dict(source=str(v.path.name), ptxas=v.ptxas)
                   for k, v in kernels.items()})
 
     captured = {task: main_path_inputs(torch, port, task)
@@ -857,12 +1059,22 @@ def main():
         torch, port, 'block_stack', at=(25,), num_envs=STACK_ENVS,
         num_block=5)
     captured['primitive'] = primitive_main_inputs(torch, port)
+    captured['insertion'] = main_path_inputs(torch, port, 'insertion',
+                                             num_envs=INS_ENVS)
     ik_res = phase_ik(captured, count_lib)
     eng_res = phase_engine(kernels, captured, count_lib)
     main_res = phase_main(torch, port)
     mb_res = phase_multibody(kernels, captured, count_lib)
     multi_res, _ = phase_multi_main(torch, port)
     phase_primitive_main(torch, port)
+    ins_launches = phase_insertion_main(torch, port)['launches']
+
+    def insertion(r, launches):
+        """A kernel's figures on insertion's main path, for its row."""
+        return dict(launches=launches, max_abs_err=r['max_abs_err'],
+                    ms=r['ms'], plain_ms=r['plain_ms'],
+                    bound_ms=r['bound_ms'], bound_by=r['bound_by'],
+                    library_ms=None)
 
     launches = main_res['launches']
     k1, k2, k3 = ik_res, eng_res['push'], mb_res['block_rearrange']
@@ -872,7 +1084,8 @@ def main():
              replaces='pybullet_multigoal_gym_tpu/ops/pallas_ik.py:90',
              launches=launches['ik'], max_abs_err=k1['max_abs_err'],
              ms=k1['ms'], plain_ms=k1['plain_ms'], bound_ms=k1['bound_ms'],
-             bound_by=k1['bound_by'], library_ms=None),
+             bound_by=k1['bound_by'], library_ms=None,
+             insertion=insertion(k1['insertion'], ins_launches['ik'])),
         dict(name='K2 fused control step (push, 100 substeps)', route='cuda',
              source='pybullet_multigoal_gym_tpu_torch/csrc/engine.cu',
              replaces='pybullet_multigoal_gym_tpu/ops/pallas_engine.py:497',
@@ -891,7 +1104,9 @@ def main():
              # are held to each env's own bound: see k3_vs_plain)
              max_abs_err=k3['max_abs_err'], ms=k3['ms'],
              plain_ms=k3['plain_ms'], bound_ms=k3['bound_ms'],
-             bound_by=k3['bound_by'], library_ms=None),
+             bound_by=k3['bound_by'], library_ms=None,
+             insertion=insertion(mb_res['insertion'],
+                                 ins_launches['engine'])),
     ]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({'ok': True, 'device': {

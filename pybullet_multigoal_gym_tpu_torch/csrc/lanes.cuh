@@ -1,7 +1,7 @@
 // Contact-lane geometry shared by the control-step kernels K2 (engine.cu)
 // and K3 (multibody.cu): box-plane, SAT box-box with incident corners and
-// the cross-piercing fallback, the edge-edge candidate, sphere-plane and
-// sphere-box. Counterpart of the tile helpers of
+// the cross-piercing fallback (two-sided, or one-sided against an immovable
+// box), the edge-edge candidate, sphere-plane and sphere-box. Counterpart of the tile helpers of
 // pybullet_multigoal_gym_tpu/ops/pallas_engine.py:225-443; the plain PyTorch
 // versions are in ops/engine_plain.py.
 //
@@ -68,11 +68,13 @@ KDEV void box_plane_lanes(V3 c, const M3& R, const float h[3], float plane_z,
     }
 }
 
-// 9-lane SAT box (A) vs box (B) manifold: 4 incident-face corners of A in B,
-// 4 of B in A, 1 cross-piercing fallback (pallas_engine.py:sat_box_box_lanes).
-template <class Emit>
-KDEV void sat_box_box_lanes(V3 ca, const M3& Ra, const float ha[3], V3 cb,
-                            const M3& Rb, const float hb[3], Emit&& emit) {
+// SAT box (A) vs box (B) manifold: 4 incident-face corners of A in B, 4 of
+// B in A (TWO_SIDED only), 1 cross-piercing fallback: 9 lanes two-sided
+// (pallas_engine.py:sat_box_box_lanes), 5 one-sided, where B cannot move
+// (pallas_multibody.py:_one_sided: a pinned body, a static wall).
+template <bool TWO_SIDED, class Emit>
+KDEV void box_box_manifold(V3 ca, const M3& Ra, const float ha[3], V3 cb,
+                           const M3& Rb, const float hb[3], Emit&& emit) {
     V3 t = ca - cb;
     float best = 0.0f, sat_ok = 1.0f;
     V3 n = {0.0f, 0.0f, 0.0f};
@@ -98,17 +100,26 @@ KDEV void sat_box_box_lanes(V3 ca, const M3& Ra, const float ha[3], V3 cb,
         inside_any = fmaxf(inside_any, in);
         emit(cs[k], n, pen, in * sat_ok);
     }
-    incident_corners(cb, Rb, hb, n, cs);          // B corners toward A
+    if (TWO_SIDED) {
+        incident_corners(cb, Rb, hb, n, cs);      // B corners toward A
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-        float pen = dot(n, cs[k] - ca) + ra_n;
-        float in = point_in_box(cs[k], ca, Ra, ha);
-        inside_any = fmaxf(inside_any, in);
-        emit(cs[k], n, pen, in * sat_ok);
+        for (int k = 0; k < 4; ++k) {
+            float pen = dot(n, cs[k] - ca) + ra_n;
+            float in = point_in_box(cs[k], ca, Ra, ha);
+            inside_any = fmaxf(inside_any, in);
+            emit(cs[k], n, pen, in * sat_ok);
+        }
     }
     V3 p_cross = 0.5f * (clamp_into_box(ca, cb, Rb, hb) +
                          clamp_into_box(cb, ca, Ra, ha));
     emit(p_cross, n, best, sat_ok * (1.0f - inside_any));
+}
+
+// 9-lane SAT box (A) vs box (B) manifold.
+template <class Emit>
+KDEV void sat_box_box_lanes(V3 ca, const M3& Ra, const float ha[3], V3 cb,
+                            const M3& Rb, const float hb[3], Emit&& emit) {
+    box_box_manifold<true>(ca, Ra, ha, cb, Rb, hb, emit);
 }
 
 // Edge-edge candidate of box A vs box B (pallas_engine.py:edge_lane_tiles,
@@ -165,6 +176,15 @@ KDEV void edge_lane(V3 ca, const M3& Ra, const float ha[3], V3 cb,
     }
     float edge_wins = min_e < fminf(min_f * 0.8f, min_f) - 1e-3f ? 1.0f : 0.0f;
     emit(pt, n, min_e, sat_ok * edge_wins * (min_e > -1e-4f ? 1.0f : 0.0f));
+}
+
+// One-sided box (A, free) vs box (B, immovable): 5 lanes, and with EDGE
+// the edge-edge candidate after them (pallas_multibody.py:_one_sided).
+template <bool EDGE, class Emit>
+KDEV void box_box_one_sided(V3 ca, const M3& Ra, const float ha[3], V3 cb,
+                            const M3& Rb, const float hb[3], Emit&& emit) {
+    box_box_manifold<false>(ca, Ra, ha, cb, Rb, hb, emit);
+    if (EDGE) edge_lane(ca, Ra, ha, cb, Rb, hb, emit);
 }
 
 // Sphere vs support plane: 1 lane.

@@ -1,27 +1,34 @@
-// K3: the whole control step of a scene with several free bodies
-// (n_substeps velocity-level 2 ms substeps) fused into one launch, one
-// thread per environment.
+// K3: the whole control step of a scene with several free and pinned
+// bodies (n_substeps velocity-level 2 ms substeps) fused into one launch,
+// one thread per environment.
 //
 // Replaces pybullet_multigoal_gym_tpu/ops/pallas_multibody.py:_build_kernel
 // (launched through PallasMultiBodyEngine.control_step) for scenes of free
-// bodies made of box geoms of any size, with the parallel-jaw gripper:
-// block_stack and block_rearrange with 1-5 blocks, and the push-primitive
-// tasks (a slot of three boxes and a cube, or a rectangle). Same physics as
-// ops/multibody_plain.py, the plain PyTorch version it is checked against,
-// and the same lane order: per body, per geom of it, the plane (4) and both
-// fingers (2 x 9 SAT); per pair of bodies, per pair of their geoms, a SAT
-// manifold (9) and the edge-edge candidate; the finger pads on the plane
-// (2 x 4); the arm-sphere lanes that ops/lane_cull.py keeps, per geom. A
-// geom's centre is its body's position plus R times its offset; every lane
-// of a geom acts on its body. The solver is K2's (engine.cu) with a lane's
-// two sides made general: each side is a body, a finger (riding on the
-// arm), an arm sphere or the world.
+// and pinned bodies made of box geoms of any size, with the parallel-jaw
+// gripper: block_stack and block_rearrange with 1-5 blocks, the
+// push-primitive tasks (a slot of three boxes and a cube, or a rectangle)
+// and insertion (a free rectangle and a pinned slot of four boxes). Same
+// physics as ops/multibody_plain.py, the plain PyTorch version it is
+// checked against, and the same lane order: per free body, per geom of it,
+// the plane (4), both fingers (2 x 9 SAT) and per geom of a pinned body a
+// one-sided manifold (5) and the edge-edge candidate; per geom of a pinned
+// body both fingers (2 x 9 SAT, the geom as side A); per pair of free
+// bodies, per pair of their geoms, a SAT manifold (9) and the edge-edge
+// candidate; the finger pads on the plane (2 x 4); the arm-sphere lanes
+// that ops/lane_cull.py keeps, per geom. A geom's centre is its body's
+// position plus R times its offset; every lane of a free body's geom acts
+// on its body. A pinned body is immovable: no gravity, no plane lanes, no
+// integration, and a lane's pinned side adds nothing to its effective mass
+// and takes no impulse, as the world's side does. The solver is K2's
+// (engine.cu) with a lane's two sides made general: each side is a body, a
+// finger (riding on the arm), an arm sphere or the world.
 //
 // Design. As in K2 the state stays on chip for the whole control step, read
 // once and written once as SoA (rows, n) arrays. The scene's structure is a
 // template (bodies, geoms, each geom's body, which arm spheres keep a plane
-// lane and a lane on each geom), so the lane plan is static; the geoms'
-// sizes and offsets come with the parameters. A scene holds up to 260
+// lane and a lane on each geom, the geoms off their body's origin, the
+// pinned bodies), so the lane plan is static; the geoms' sizes and offsets
+// come with the parameters. A scene holds up to 260
 // lanes, most of them inactive in any substep (bodies apart, fingers away):
 // the lane builders keep only the active lanes, in plan order, so the
 // solver's arrays (about 35 words a lane, in per-thread local memory) are
@@ -77,15 +84,25 @@ KHD constexpr int geom_mask(unsigned long long gm, int g) {
     return (int)((gm >> (7 * g)) & 0x7f);
 }
 
-// Lanes in the plan: per geom plane 4 + fingers 2 x 9; per geom pair of
-// two bodies 10; finger pads 2 x 4; the kept sphere lanes.
+// Whether body b is pinned: bit b of PIN.
+KHD constexpr bool pinned(int pin, int b) { return (pin >> b) & 1; }
+
+// Lanes in the plan: per free geom plane 4 + fingers 2 x 9 + 6 per pinned
+// geom; per pinned geom fingers 2 x 9; per geom pair of two free bodies 10;
+// finger pads 2 x 4; the kept sphere lanes.
 constexpr int lane_count(int ng, unsigned gb, int plane_mask,
-                         unsigned long long gm) {
-    int l = ng * 22 + 8 + popc7(plane_mask);
+                         unsigned long long gm, int pin) {
+    int n_pinned = 0;
+    for (int g = 0; g < ng; ++g) n_pinned += pinned(pin, geom_body(gb, g));
+    int l = 8 + popc7(plane_mask);
     for (int g = 0; g < ng; ++g) {
+        const int b = geom_body(gb, g);
         l += popc7(geom_mask(gm, g));
+        l += pinned(pin, b) ? 18 : 22 + 6 * n_pinned;
         for (int g2 = g + 1; g2 < ng; ++g2)
-            if (geom_body(gb, g) != geom_body(gb, g2)) l += 10;
+            if (geom_body(gb, g2) != b && !pinned(pin, b) &&
+                !pinned(pin, geom_body(gb, g2)))
+                l += 10;
     }
     return l;
 }
@@ -111,11 +128,11 @@ constexpr int any_geom_mask(int ng, unsigned long long gm) {
 }
 
 template <int NB, int NG, unsigned GB, int PLANE_MASK, unsigned long long GM,
-          int OM>
+          int OM, int PIN>
 struct Plan {
     static constexpr int ROWS = R_BODY + 13 * NB + 5;
     static constexpr int R_DOOR = R_BODY + 13 * NB, R_EE = R_DOOR + 2;
-    static constexpr int L = lane_count(NG, GB, PLANE_MASK, GM);
+    static constexpr int L = lane_count(NG, GB, PLANE_MASK, GM, PIN);
     static constexpr int ANY_GEOM_MASK = any_geom_mask(NG, GM);
     static_assert(plan_order_by_geom(NB, NG, GB),
                   "the kernel visits geoms in geom order: see "
@@ -160,12 +177,12 @@ struct Lanes {
 
 // One environment, n_sub substeps.
 template <int NB, int NG, unsigned GB, int PLANE_MASK, unsigned long long GM,
-          int OM>
+          int OM, int PIN>
 KDEV void multibody_env(const float* __restrict__ st,
                         const float* __restrict__ ctl,
                         const float* __restrict__ prm, float* __restrict__ out,
                         int n, int i, int n_sub, int iters) {
-    using P = Plan<NB, NG, GB, PLANE_MASK, GM, OM>;
+    using P = Plan<NB, NG, GB, PLANE_MASK, GM, OM, PIN>;
     constexpr int L = P::L;
     const float plane_z = prm[P_PLANE_Z], erp_dt = prm[P_ERP_DT];
     const float slop = prm[P_SLOP];
@@ -263,7 +280,7 @@ KDEV void multibody_env(const float* __restrict__ st,
         // 4. gravity on the free bodies
 #pragma unroll 1
         for (int b = 0; b < NB; ++b) {
-            bv[b].z = bv[b].z - GRAVITY * DT;
+            if (!pinned(PIN, b)) bv[b].z = bv[b].z - GRAVITY * DT;
             R[b] = qmat(bq[b]);
         }
 
@@ -273,6 +290,7 @@ KDEV void multibody_env(const float* __restrict__ st,
 #pragma unroll 1
         for (int g = 0; g < NG; ++g) {
             const int b = geom_body(GB, g);
+            if (pinned(PIN, b)) continue;
             const V3 c = centre(g, b);
             const Meta mp = meta(b, -1, -1, -1, -1, false, false, 0.0f, 0.0f,
                                  mu_plane[b]);
@@ -289,15 +307,46 @@ KDEV void multibody_env(const float* __restrict__ st,
                                       ls.add(p, nl, pen, act, mf);
                                   });
             }
+            // the geoms of pinned bodies, immovable (side B the world)
+#pragma unroll 1
+            for (int g2 = 0; g2 < NG; ++g2) {
+                const int b2 = geom_body(GB, g2);
+                if (!pinned(PIN, b2)) continue;
+                const Meta mw = meta(b, -1, -1, -1, -1, false, false, 0.0f,
+                                     0.0f, mu_pair[b][b2]);
+                box_box_one_sided<true>(
+                    c, R[b], half[g], centre(g2, b2), R[b2], half[g2],
+                    [&](V3 p, V3 nl, float pen, float act) {
+                        ls.add(p, nl, pen, act, mw);
+                    });
+            }
+        }
+        // the fingers against each geom of a pinned body, the geom as side
+        // A taking no impulse
+#pragma unroll 1
+        for (int g = 0; g < NG; ++g) {
+            const int b = geom_body(GB, g);
+            if (!pinned(PIN, b)) continue;
+            const V3 c = centre(g, b);
+#pragma unroll 1
+            for (int f = 0; f < 2; ++f) {
+                const Meta mf = meta(-1, -1, -1, f, 6, false, false, -1.0f,
+                                     -1.0f, mu_finger[b]);
+                sat_box_box_lanes(c, R[b], half[g], fpos[f], Rb7, fhalf,
+                                  [&](V3 p, V3 nl, float pen, float act) {
+                                      ls.add(p, nl, pen, act, mf);
+                                  });
+            }
         }
 #pragma unroll 1
         for (int g = 0; g < NG; ++g) {
             const int b = geom_body(GB, g);
+            if (pinned(PIN, b)) continue;
             const V3 ca = centre(g, b);
 #pragma unroll 1
             for (int g2 = g + 1; g2 < NG; ++g2) {
                 const int b2 = geom_body(GB, g2);
-                if (b2 == b) continue;
+                if (b2 == b || pinned(PIN, b2)) continue;
                 const Meta mb = meta(b, b2, -1, -1, -1, false, false, 0.0f,
                                      0.0f, mu_pair[b][b2]);
                 auto emit = [&](V3 p, V3 nl, float pen, float act) {
@@ -340,8 +389,10 @@ KDEV void multibody_env(const float* __restrict__ st,
                 for (int g = 0; g < NG; ++g) {
                     if (!((geom_mask(GM, g) >> sp) & 1)) continue;
                     const int b = geom_body(GB, g);
-                    const Meta ms = meta(-1, b, -1, -1, li, true, true, 1.0f,
-                                         es, mu_sphere[b]);
+                    // side B a free body, or the world for a pinned one
+                    const Meta ms = meta(-1, pinned(PIN, b) ? -1 : b, -1, -1,
+                                         li, true, true, 1.0f, es,
+                                         mu_sphere[b]);
                     sphere_box_lane(c, rad, centre(g, b), R[b], half[g],
                                     [&](V3 p, V3 nl, float pen, float act) {
                                         ls.add(p, nl, pen, act, ms);
@@ -536,6 +587,7 @@ KDEV void multibody_env(const float* __restrict__ st,
         }
 #pragma unroll 1
         for (int b = 0; b < NB; ++b) {
+            if (pinned(PIN, b)) continue;   // pose and velocities pass through
             bp[b] = bp[b] + bv_[b] * DT;
             V3 w = bw_[b];
             float w_norm = sqrtf(fmaxf(dot(w, w), 1e-18f));
@@ -583,32 +635,41 @@ KDEV void multibody_env(const float* __restrict__ st,
 }  // namespace kin
 
 // The scenes this library holds, as (bodies, geoms, geom bodies, plane
-// mask, geom masks, offset geoms), packed as Plan says: the multi-step scenes of 1-5
-// blocks without the chest, with the arm-sphere lanes of end-effector
-// control (ops/lane_cull.py) and with every sphere lane (joint control);
-// then the push-primitive scenes, the slot (three geoms) and the cube
-// under both controls, and the rectangle under end-effector control (under
-// joint control it is the 1-block instance, its size a parameter).
+// mask, geom masks, offset geoms, pinned bodies), packed as Plan says: the
+// multi-step scenes of 1-5 blocks without the chest, with the arm-sphere
+// lanes of end-effector control (ops/lane_cull.py) and with every sphere
+// lane (joint control); then the push-primitive scenes, the slot (three
+// geoms) and the cube under both controls, and the rectangle under
+// end-effector control (under joint control it is the 1-block instance,
+// its size a parameter); then insertion, the rectangle and the pinned slot
+// (four geoms), under both controls.
 #define MULTIBODY_SCENES(X)                                                 \
-    X(1, 1, 0x0, 0x40, 0x60, 0x0) X(2, 2, 0x10, 0x40, 0x3060, 0x0)          \
-    X(3, 3, 0x210, 0x40, 0x1c3870, 0x0) X(4, 4, 0x3210, 0x40, 0xe1c3870, 0x0) \
-    X(5, 5, 0x43210, 0x40, 0x78f1e3c78, 0x0)                                \
-    X(1, 1, 0x0, 0x7f, 0x7f, 0x0) X(2, 2, 0x10, 0x7f, 0x3fff, 0x0)           \
-    X(3, 3, 0x210, 0x7f, 0x1fffff, 0x0) X(4, 4, 0x3210, 0x7f, 0xfffffff, 0x0) \
-    X(5, 5, 0x43210, 0x7f, 0x7ffffffff, 0x0)                                \
-    X(2, 4, 0x1000, 0x7c, 0xfffffff, 0x6)                                   \
-    X(2, 4, 0x1000, 0x7f, 0xfffffff, 0x6) X(1, 1, 0x0, 0x7c, 0x7f, 0x0)
+    X(1, 1, 0x0, 0x40, 0x60, 0x0, 0x0)                                      \
+    X(2, 2, 0x10, 0x40, 0x3060, 0x0, 0x0)                                   \
+    X(3, 3, 0x210, 0x40, 0x1c3870, 0x0, 0x0)                                \
+    X(4, 4, 0x3210, 0x40, 0xe1c3870, 0x0, 0x0)                              \
+    X(5, 5, 0x43210, 0x40, 0x78f1e3c78, 0x0, 0x0)                           \
+    X(1, 1, 0x0, 0x7f, 0x7f, 0x0, 0x0)                                      \
+    X(2, 2, 0x10, 0x7f, 0x3fff, 0x0, 0x0)                                   \
+    X(3, 3, 0x210, 0x7f, 0x1fffff, 0x0, 0x0)                                \
+    X(4, 4, 0x3210, 0x7f, 0xfffffff, 0x0, 0x0)                              \
+    X(5, 5, 0x43210, 0x7f, 0x7ffffffff, 0x0, 0x0)                           \
+    X(2, 4, 0x1000, 0x7c, 0xfffffff, 0x6, 0x0)                              \
+    X(2, 4, 0x1000, 0x7f, 0xfffffff, 0x6, 0x0)                              \
+    X(1, 1, 0x0, 0x7c, 0x7f, 0x0, 0x0)                                      \
+    X(2, 5, 0x11110, 0x7c, 0x7ffffffff, 0x1c, 0x2)                          \
+    X(2, 5, 0x11110, 0x7f, 0x7ffffffff, 0x1c, 0x2)
 
 #ifdef __CUDACC__
 template <int NB, int NG, unsigned GB, int PLANE_MASK, unsigned long long GM,
-          int OM>
+          int OM, int PIN>
 __global__ void __launch_bounds__(32)
 multibody_kernel(const float* __restrict__ st, const float* __restrict__ ctl,
                  const float* __restrict__ prm, float* __restrict__ out, int n,
                  int n_sub, int iters) {
     int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i < n)
-        kin::mb::multibody_env<NB, NG, GB, PLANE_MASK, GM, OM>(
+        kin::mb::multibody_env<NB, NG, GB, PLANE_MASK, GM, OM, PIN>(
             st, ctl, prm, out, n, i, n_sub, iters);
 }
 
@@ -616,17 +677,18 @@ multibody_kernel(const float* __restrict__ st, const float* __restrict__ ctl,
 // scene this library does not hold, else cudaGetLastError() after the launch.
 extern "C" int multibody_launch(int nb, int ng, unsigned geom_bodies,
                                 int plane_mask, unsigned long long geom_masks,
-                                int offset_geoms, const float* st,
-                                const float* ctl,
+                                int offset_geoms, int pinned_bodies,
+                                const float* st, const float* ctl,
                                 const float* prm, float* out, int n, int n_sub,
                                 int iters, void* stream) {
     if (n == 0) return 0;
     dim3 grid((n + 31) / 32), block(32);
     cudaStream_t s = (cudaStream_t)stream;
-#define MULTIBODY_CASE(NB, NG, GB, PM, GM, OM)                              \
+#define MULTIBODY_CASE(NB, NG, GB, PM, GM, OM, PIN)                         \
     if (nb == NB && ng == NG && geom_bodies == GB && plane_mask == PM &&    \
-        geom_masks == GM##ULL && offset_geoms == OM) {                      \
-        multibody_kernel<NB, NG, GB, PM, GM##ULL, OM>                       \
+        geom_masks == GM##ULL && offset_geoms == OM &&                      \
+        pinned_bodies == PIN) {                                             \
+        multibody_kernel<NB, NG, GB, PM, GM##ULL, OM, PIN>                  \
             <<<grid, block, 0, s>>>(st, ctl, prm, out, n, n_sub, iters);    \
         return (int)cudaGetLastError();                                     \
     }

@@ -106,7 +106,7 @@ class KukaMultiBlockEnv(KukaEnvBase):
         return state, obs
 
     # ------------------------------------------------------------------- step
-    def step_finish(self, state: core.EnvState):
+    def step_finish(self, state: core.EnvState, gen=None):
         cfg = self.cfg
         obs, state = self._get_obs(state)
         reward, achieved = core.binary_or_dense_reward(

@@ -5,14 +5,26 @@ computed from one FK pass and the analytic tip Jacobian."""
 import torch
 
 from pybullet_multigoal_gym_tpu_torch.maths import quat as quatm
+from pybullet_multigoal_gym_tpu_torch.model import kuka_model as KM
 from pybullet_multigoal_gym_tpu_torch.ops import fk
+from pybullet_multigoal_gym_tpu_torch.utils.tensors import const
+
+# the EE force sensor's clip (N), at its consumer in the reference
+EE_FORCE_LIMIT = 50.0
 
 
-def robot_state(q, qd, fq, fqd, grasping: bool):
+def robot_state(q, qd, fq, fqd, grasping: bool, ee_contact_force=None):
     """A dict of the robot-state fields (parallel-jaw gripper): tip pose
     (rpy in PyBullet's Euler convention), tip velocities from the Jacobian,
     finger closeness (the distance between the two finger tabs) and finger
-    velocity ((base_vel - finger_tab_vel)[y])."""
+    velocity ((base_vel - finger_tab_vel)[y]). With ``ee_contact_force``
+    (the engine's world-frame contact force on the gripper), also the EE
+    force sensor ``ee_joint_force``: that force plus the gravity load of
+    the distal subtree (link 7, the gripper base and the fingers,
+    ``KM.EE_SUBTREE_MASS``), a constant world -z force, turned into link
+    7's frame, so that the reading depends on the orientation as Bullet's
+    joint-frame sensor does, and clipped to +-50 N (JAX
+    `envs/robot.py:59-72`)."""
     pos, rot = fk.link_frames(q)
     frames = fk.ee_frames(q, fq, frames=(pos, rot))
     r7 = rot[..., 6, :]
@@ -35,7 +47,7 @@ def robot_state(q, qd, fq, fqd, grasping: bool):
         closeness = q.new_zeros(q.shape[:-1] + (1,))
         finger_vel = q.new_zeros(q.shape[:-1] + (1,))
 
-    return {
+    out = {
         'gripper_xyz': tip,
         'gripper_rpy': quatm.quat_to_euler_xyz(r7),
         'gripper_finger_closeness': closeness,
@@ -46,3 +58,9 @@ def robot_state(q, qd, fq, fqd, grasping: bool):
         'tip_rot': r7,
         'frames': frames,
     }
+    if ee_contact_force is not None:
+        g_load = KM.EE_SUBTREE_MASS * 9.81
+        f_world = ee_contact_force + const([0.0, 0.0, -g_load], q)
+        out['ee_joint_force'] = torch.clamp(quatm.rotate_inv(r7, f_world),
+                                            -EE_FORCE_LIMIT, EE_FORCE_LIMIT)
+    return out

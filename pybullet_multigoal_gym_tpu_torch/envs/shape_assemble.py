@@ -180,7 +180,7 @@ class KukaPrimitiveEnv(KukaEnvBase):
                 n_substeps=SUBSTEPS_PER_TARGET)
         return phys._replace(q=rest.clone(), qd=torch.zeros_like(phys.qd))
 
-    def step_finish(self, state: core.EnvState):
+    def step_finish(self, state: core.EnvState, gen=None):
         """Observation and reward after the primitive; primitive_push_assemble
         regenerates its goal (the slot's frame) first."""
         cfg = self.cfg

@@ -17,6 +17,7 @@ import torch
 from pybullet_multigoal_gym_tpu_torch.config import EnvConfig
 from pybullet_multigoal_gym_tpu_torch.envs import core
 from pybullet_multigoal_gym_tpu_torch.envs import robot as R
+from pybullet_multigoal_gym_tpu_torch.maths import quat as quatm
 from pybullet_multigoal_gym_tpu_torch.model import kuka_model as KM
 from pybullet_multigoal_gym_tpu_torch.ops import dynamics as D
 from pybullet_multigoal_gym_tpu_torch.ops import fk, ik
@@ -138,16 +139,26 @@ class KukaEnvBase:
             state = state._replace(ee_target=torch.clamp(
                 state.ee_target + a[:, :3] * 0.01, self._ee_lower,
                 self._ee_upper))
+            if cfg.end_effector_rotation_control:
+                # the ZYZ Euler accumulator of the EE orientation target
+                # (kuka.py:204-220)
+                state = state._replace(
+                    ee_target_rot=state.ee_target_rot + a[:, 3:6] * 0.05)
         return state, f_target
 
     def arm_targets(self, state: core.EnvState):
         """Joint targets of the arm servo: IK (kernel K1) toward the EE
         target, warm-started from the current configuration, or the joint
-        target under joint control."""
+        target under joint control. Under EE rotation control the IK's
+        target orientation is the ZYZ accumulator's quaternion, else the
+        fixed downward one."""
         if self.cfg.joint_control:
             return state.joint_target
         n = state.ee_target.shape[0]
-        return self.ik.solve(state.ee_target, q_init=state.phys.q,
+        target_quat = (quatm.euler_zyz_to_quat(state.ee_target_rot)
+                       if self.cfg.end_effector_rotation_control else None)
+        return self.ik.solve(state.ee_target, target_quat=target_quat,
+                             q_init=state.phys.q,
                              rest_pose=self._rest.expand(n, 7))
 
 
@@ -203,7 +214,7 @@ class KukaSingleStepEnv(KukaEnvBase):
         return state, self._get_obs(state)
 
     # ------------------------------------------------------------------- step
-    def step_finish(self, state: core.EnvState):
+    def step_finish(self, state: core.EnvState, gen=None):
         cfg = self.cfg
         obs = self._get_obs(state)
         reward, achieved = core.binary_or_dense_reward(

@@ -3,18 +3,19 @@ device, with TimeLimit and auto-reset.
 
 Counterpart of `pybullet_multigoal_gym_tpu/envs/vec_env.py`. A step runs
 decode -> IK (kernel K1) -> control step (kernel K2 for the single-step
-family, K3 for the multi-step family) -> observation and reward ->
-TimeLimit; in the push-primitive family one step is a whole primitive, 20
-pairs of K1 and K3 launches (`envs/shape_assemble.py`). ``done`` comes only
-from the TimeLimit, as in the reference, where ``env.step`` always returns
-``done=False`` and gym's ``TimeLimit`` wrapper truncates, so all episodes of
-a batch run in lockstep: the reset branch is decided from the state's host
-step count and never waits for the device.
+family, K3 for the multi-step and insertion families) -> observation and
+reward -> TimeLimit; in the push-primitive family one step is a whole
+primitive, 20 pairs of K1 and K3 launches (`envs/shape_assemble.py`).
+``done`` comes only from the TimeLimit, as in the reference, where
+``env.step`` always returns ``done=False`` and gym's ``TimeLimit`` wrapper
+truncates, so all episodes of a batch run in lockstep: the reset branch is
+decided from the state's host step count and never waits for the device.
 """
 
 import torch
 
 from pybullet_multigoal_gym_tpu_torch.config import EnvConfig, env_id
+from pybullet_multigoal_gym_tpu_torch.envs.insertion import KukaInsertionEnv
 from pybullet_multigoal_gym_tpu_torch.envs.multi_step import KukaMultiBlockEnv
 from pybullet_multigoal_gym_tpu_torch.envs.shape_assemble import (
     KukaPrimitiveEnv)
@@ -32,8 +33,7 @@ def _make_core(cfg: EnvConfig, device):
         return KukaMultiBlockEnv(cfg, device)
     if cfg.family == 'shape_assemble':
         return KukaPrimitiveEnv(cfg, device)
-    raise NotImplementedError('family %r comes with a later slice of the '
-                              'port' % cfg.family)
+    return KukaInsertionEnv(cfg, device)
 
 
 class VecMGEnv:
@@ -47,7 +47,8 @@ class VecMGEnv:
 
     ``device=None`` means CUDA, and raises where CUDA is missing; pass
     ``device='cpu'`` to run the plain PyTorch versions of the kernels.
-    Random draws (resets) come from ``self.generator``, seeded by ``seed``.
+    Random draws (resets, the state noise) come from ``self.generator``,
+    seeded by ``seed``.
     """
 
     def __init__(self, cfg: EnvConfig, num_envs: int = 1, device=None,
@@ -105,7 +106,7 @@ class VecMGEnv:
                 door_motor_on=state.door_hold_open, door_target=door_target))
         state = state._replace(phys=phys, steps=state.steps + 1,
                                host_steps=state.host_steps + 1)
-        state, obs, reward, achieved = core.step_finish(state)
+        state, obs, reward, achieved = core.step_finish(state, self.generator)
         done = state.steps >= self.max_episode_steps
         info = {'goal_achieved': achieved}
         if self.auto_reset and state.host_steps >= self.max_episode_steps:

@@ -35,8 +35,8 @@ SIGNATURES = {
     'ik': ('ik_launch', [_P, _P, _I, _I, _F, _F, _F, _P]),
     'engine': ('engine_launch', [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P]),
     'multibody': ('multibody_launch',
-                  [_I, _I, ctypes.c_uint, _I, ctypes.c_ulonglong, _I, _P, _P,
-                   _P, _P, _I, _I, _I, _P]),
+                  [_I, _I, ctypes.c_uint, _I, ctypes.c_ulonglong, _I, _I, _P,
+                   _P, _P, _P, _I, _I, _I, _P]),
 }
 
 _LOADED = {}    # name -> Kernel, one load per process

@@ -3,13 +3,13 @@
 
 Replaces `pybullet_multigoal_gym_tpu/ops/pallas_multibody.py:_build_kernel`
 (launched through `PallasMultiBodyEngine.control_step`) for scenes of free
-bodies made of box geoms, with the parallel-jaw gripper: block_stack and
-block_rearrange with 1-5 blocks, and the push-primitive tasks. Its plain
-version is
+and pinned bodies made of box geoms, with the parallel-jaw gripper:
+block_stack and block_rearrange with 1-5 blocks, the push-primitive tasks
+and insertion. Its plain version is
 `ops/multibody_plain.py:control_step`: the wrapper runs that for tensors on
 the CPU and launches the kernel for tensors on a CUDA device, and raises for
 any other device. `D.multibody_consts` raises for the scenes later slices
-bring (static walls, the chest door, pinned bodies, cylinders).
+bring (static walls, the chest door, cylinders).
 
 One launch runs all ``n_substeps`` substeps with the state held on chip: the
 state is read once and written once, as (18 + 13 NB + 5, N) SoA rows in the
@@ -52,13 +52,15 @@ def scene_params(sc: D.MultiBodyConsts):
 def scene_key(sc: D.MultiBodyConsts):
     """The scene's structure as `multibody.cu` picks its kernel instance
     (one of `MULTIBODY_SCENES`): bodies, geoms, each geom's body (4 bits a
-    geom), the plane mask, each geom's sphere mask (7 bits a geom) and the
-    geoms off their body's origin (a bit each)."""
+    geom), the plane mask, each geom's sphere mask (7 bits a geom), the
+    geoms off their body's origin (a bit each) and the pinned bodies (a bit
+    each)."""
     return (sc.nb, sc.ng,
             sum(b << 4 * g for g, b in enumerate(sc.geom_body)),
             sc.plane_mask,
             sum(m << 7 * g for g, m in enumerate(sc.geom_mask)),
-            sum(1 << g for g, p in enumerate(sc.geom_pos) if any(p)))
+            sum(1 << g for g, p in enumerate(sc.geom_pos) if any(p)),
+            sum(1 << b for b, p in enumerate(sc.pinned) if p))
 
 
 def pack(state: D.PhysicsState, controls: D.Controls):

@@ -5,7 +5,8 @@ Counterpart of the first part of `pybullet_multigoal_gym_tpu/ops/dynamics.py`
 and `Engine.init_state`), batched over a leading env axis. The physics itself
 is `ops/engine_plain.py` / `ops/multibody_plain.py` (plain PyTorch) and
 `ops/cuda_engine.py` / `ops/cuda_multibody.py` (the kernels) for scenes with
-at most one free body / several free bodies of box geoms. One control step =
+at most one free body / several free and pinned bodies of box geoms. One
+control step =
 ``n_substeps`` velocity-level substeps of ``DT_SUB`` seconds (5
 stepSimulation calls x 20 substeps = 100).
 """
@@ -113,10 +114,12 @@ def scene_consts(spec: S.SceneSpec, ik_workspace: bool = True) -> SceneConsts:
 
 @dataclasses.dataclass(frozen=True)
 class MultiBodyConsts:
-    """Everything static that the control step of a scene of free bodies
-    made of box geoms needs (`pallas_multibody.py:262-299`), per body in
-    body order and per geom in geom order, in float32 where the kernels
-    read it."""
+    """Everything static that the control step of a scene of free and
+    pinned bodies made of box geoms needs (`pallas_multibody.py:262-299`),
+    per body in body order and per geom in geom order, in float32 where the
+    kernels read it. A pinned body (the insertion slot) has inverse mass and
+    inverse inertia 0: it gets no gravity, no plane lanes and no
+    integration, and every lane against it treats it as the world."""
     nb: int
     # the geom table: each geom's body, half extents and offset in the body
     # frame (its centre is the body position plus R offset)
@@ -141,16 +144,32 @@ class MultiBodyConsts:
         return len(self.geom_body)
 
     @property
+    def pinned(self):
+        """Per body, whether it is pinned (mass 0 in the scene)."""
+        return tuple(m == 0.0 for m in self.inv_mass)
+
+    @property
     def geom_order(self):
         """The geoms in the lane plan's order: per body, its geoms."""
         return [g for b in range(self.nb) for g in range(self.ng)
                 if self.geom_body[g] == b]
 
     @property
+    def free_geoms(self):
+        """The free bodies' geoms, in `geom_order`."""
+        return [g for g in self.geom_order
+                if not self.pinned[self.geom_body[g]]]
+
+    @property
+    def pinned_geoms(self):
+        """The pinned bodies' geoms, in `geom_order`."""
+        return [g for g in self.geom_order if self.pinned[self.geom_body[g]]]
+
+    @property
     def geom_pairs(self):
-        """The geom pairs of two bodies in the lane plan's order: per pair
-        of bodies b < b2, each geom of b with each geom of b2."""
-        order = self.geom_order
+        """The geom pairs of two free bodies in the lane plan's order: per
+        pair of bodies b < b2, each geom of b with each geom of b2."""
+        order = self.free_geoms
         return [(g, g2) for b in range(self.nb) for b2 in range(b + 1, self.nb)
                 for g in order if self.geom_body[g] == b
                 for g2 in order if self.geom_body[g2] == b2]
@@ -179,28 +198,30 @@ class MultiBodyConsts:
 
 def multibody_consts(spec: S.SceneSpec, ik_workspace: bool = True
                      ) -> MultiBodyConsts:
-    """Static constants of a multi-body scene of free bodies made of one or
-    more box geoms of any size, with the parallel-jaw gripper (the
-    multi-step family without the chest, the push-primitive family).
-    ``ik_workspace=False`` (joint control) keeps every arm-sphere lane.
-    A body's inertia is that of its geom at the body origin alone, or a
-    1e-3 diagonal where it has none (the reference's convention,
-    `pallas_multibody.py:273-281`). Raises `NotImplementedError` for what
-    later slices of the port bring: static boxes, the chest door, pinned
-    bodies and cylinders."""
+    """Static constants of a multi-body scene of free and pinned bodies
+    made of one or more box geoms of any size, with the parallel-jaw
+    gripper (the multi-step family without the chest, the push-primitive
+    family, insertion). ``ik_workspace=False`` (joint control) keeps every
+    arm-sphere lane. A body of mass <= 0 is pinned: inverse mass and
+    inverse inertia 0. A free body's inertia is that of its geom at the
+    body origin alone, or a 1e-3 diagonal where it has none (the
+    reference's convention, `pallas_multibody.py:273-281`). Raises
+    `NotImplementedError` for what later slices of the port bring: static
+    boxes, the chest door and cylinders."""
     later = 'come with a later slice of the port'
     if spec.ns_static or spec.door is not None:
         raise NotImplementedError('the chest (static walls and the door) '
                                   + later)
     a = spec.np_arrays()
-    if (a['body_mass'] <= 0).any():
-        raise NotImplementedError('pinned bodies ' + later)
     if (a['geom_type'] != S.BOX).any():
         raise NotImplementedError('cylinder bodies ' + later)
     reach = LC.arm_lane_mask(spec, ik_workspace)
     ng = len(a['geom_body'])
     inv_inertia = []
     for b in range(spec.n_bodies):
+        if a['body_mass'][b] <= 0:
+            inv_inertia.append((0.0, 0.0, 0.0))
+            continue
         inertia = np.full(3, 1e-3)
         for g in range(ng):
             if a['geom_body'][g] == b and (a['geom_pos'][g] == 0).all():
@@ -214,7 +235,8 @@ def multibody_consts(spec: S.SceneSpec, ik_workspace: bool = True
         geom_body=tuple(int(b) for b in a['geom_body']),
         geom_half=tuple(tuple(float(x) for x in h) for h in a['geom_half']),
         geom_pos=tuple(tuple(float(x) for x in p) for p in a['geom_pos']),
-        inv_mass=tuple(1.0 / float(m) for m in a['body_mass']),
+        inv_mass=tuple(1.0 / float(m) if m > 0 else 0.0
+                       for m in a['body_mass']),
         inv_inertia=tuple(inv_inertia),
         body_friction=tuple(float(f) for f in a['body_friction']),
         plane_z=spec.plane_z, plane_friction=spec.plane_friction,

@@ -199,24 +199,28 @@ def clamp_into_box(p, c, R, h):
     return c + mat3vec(R, loc)
 
 
-def sat_box_box_lanes(ca, Ra, ha, cb, Rb, hb, mu, **meta):
+def sat_box_box_lanes(ca, Ra, ha, cb, Rb, hb, mu, one_sided=False, **meta):
     """9-lane SAT box-box manifold: 4 incident-face corners of A in B, 4 of
-    B in A, 1 cross-piercing fallback (the 4 corners of a side at once)."""
+    B in A, 1 cross-piercing fallback (the 4 corners of a side at once).
+    ``one_sided`` (B immovable: a pinned body, a static wall) keeps A's
+    corners and the fallback, 5 lanes (`pallas_multibody.py:_one_sided`)."""
     n, sat_ok, ra_n, rb_n, min_overlap = sat_face_normal(ca, Ra, ha,
                                                          cb, Rb, hb)
     n4 = n[:, None]
     # A corners toward B, then B corners toward A
     pa = torch.stack(incident_corners(ca, Ra, ha, -n), 1)    # (N, 4, 3)
-    pb = torch.stack(incident_corners(cb, Rb, hb, n), 1)
     pen_a = rb_n[:, None] - vdot(n4, pa - cb[:, None])
-    pen_b = vdot(n4, pb - ca[:, None]) + ra_n[:, None]
     in_a = point_in_box(pa, cb[:, None], Rb[:, None], hb)
-    in_b = point_in_box(pb, ca[:, None], Ra[:, None], ha)
-    inside_any = torch.cat([in_a, in_b], 1).amax(1)
+    sides = [(pa, pen_a, in_a)]
+    if not one_sided:
+        pb = torch.stack(incident_corners(cb, Rb, hb, n), 1)
+        pen_b = vdot(n4, pb - ca[:, None]) + ra_n[:, None]
+        in_b = point_in_box(pb, ca[:, None], Ra[:, None], ha)
+        sides.append((pb, pen_b, in_b))
+    inside_any = torch.cat([x[2] for x in sides], 1).amax(1)
     lanes = [_mk_lane(p[:, k], n, pen[:, k], inside[:, k] * sat_ok, mu,
                       **meta)
-             for p, pen, inside in ((pa, pen_a, in_a), (pb, pen_b, in_b))
-             for k in range(4)]
+             for p, pen, inside in sides for k in range(4)]
     # cross-piercing fallback: SAT overlap but no corner inside either box
     p_cross = 0.5 * (clamp_into_box(ca, cb, Rb, hb)
                      + clamp_into_box(cb, ca, Ra, ha))

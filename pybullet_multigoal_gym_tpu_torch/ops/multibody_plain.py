@@ -2,20 +2,26 @@
 several free bodies.
 
 Counterpart of `pybullet_multigoal_gym_tpu/ops/pallas_multibody.py`
-(`_build_kernel`'s ``substep``, `:336-852`) for scenes of free bodies made
-of box geoms of any size, with the parallel-jaw gripper (block_stack,
-block_rearrange and the push primitives), written over a leading env axis:
-bodies stack on axis 1 of the state, and contact lanes on axis 1 of the
-lane tensors. The lane order, the lane frictions and the side metadata are
-those of the Pallas kernel: per free body, per geom of it, the plane (4)
-then the two fingers (2 x 9); then per pair of bodies, per pair of their
-geoms, 9 + the edge-edge candidate; then the finger pads on the plane (2 x
-4); then the arm-sphere lanes that `ops/lane_cull.py` keeps (per sphere,
-the plane, then each geom it reaches). Every lane of a geom acts on its
-body: the solve, the mass splitting and the coupling are per body. A lane's
-sides are ('body', b), ('finger', f), ('arm', sphere) or ('world',); its arm
-link, arm sign, arm coupling and EE-sensor sign follow from them
-(`pallas_multibody.py:68-107`).
+(`_build_kernel`'s ``substep``, `:336-852`) for scenes of free and pinned
+bodies made of box geoms of any size, with the parallel-jaw gripper
+(block_stack, block_rearrange, the push primitives and insertion), written
+over a leading env axis: bodies stack on axis 1 of the state, and contact
+lanes on axis 1 of the lane tensors. The lane order, the lane frictions and
+the side metadata are those of the Pallas kernel: per free body, per geom
+of it, the plane (4), the two fingers (2 x 9), then per geom of a pinned
+body a one-sided manifold (5) and the edge-edge candidate; then per geom of
+a pinned body the two fingers (2 x 9); then per pair of free bodies, per
+pair of their geoms, 9 + the edge-edge candidate; then the finger pads on
+the plane (2 x 4); then the arm-sphere lanes that `ops/lane_cull.py` keeps
+(per sphere, the plane, then each geom it reaches). Every lane of a geom
+acts on its body: the solve, the mass splitting and the coupling are per
+body. A lane's sides are ('body', b), ('pinned', b), ('finger', f), ('arm',
+sphere) or ('world',); its arm link, arm sign, arm coupling and EE-sensor
+sign follow from them (`pallas_multibody.py:68-107`). A pinned side acts as
+the world does (no velocity, no share of an impulse), where the Pallas
+kernel names it ('pinned',) on side A and ('world',) on side B; its own
+name keeps its lanes' groups apart. A pinned body gets no gravity and no
+integration: its pose and velocities pass through.
 
 The CPU path and the tests run this module; on the card
 `ops/cuda_multibody.py` launches `csrc/multibody.cu` instead, and the chip
@@ -80,10 +86,17 @@ def lane_group(spec: LaneSpec):
     ka, kb = spec.side_a[0], spec.side_b[0]
     if ka == 'body':
         return {'world': 'box-plane', 'finger': 'finger-box',
-                'body': 'box-box'}[kb]
+                'body': 'box-box', 'pinned': 'box-pinned'}[kb]
+    if ka == 'pinned':
+        return 'finger-pinned'
     if ka == 'finger':
         return 'finger-plane'
-    return 'sphere-plane' if kb == 'world' else 'sphere-box'
+    return {'world': 'sphere-plane', 'body': 'sphere-box',
+            'pinned': 'sphere-pinned'}[kb]
+
+
+def _body_side(sc: D.MultiBodyConsts, b):
+    return ('pinned' if sc.pinned[b] else 'body', b)
 
 
 def _sphere_lanes(sc: D.MultiBodyConsts):
@@ -100,11 +113,18 @@ def _sphere_lanes(sc: D.MultiBodyConsts):
 def lane_plan(sc: D.MultiBodyConsts):
     """Every lane's `LaneSpec`, in the kernel's order."""
     plan, gb = [], sc.geom_body
-    for g in sc.geom_order:
+    for g in sc.free_geoms:
         b = gb[g]
         plan += [LaneSpec(sc.mu_plane(b), ('body', b), ('world',))] * 4
         for f in range(2):
             plan += [LaneSpec(sc.mu_finger(b), ('body', b), ('finger', f))] * 9
+        for g2 in sc.pinned_geoms:
+            plan += [LaneSpec(sc.mu_pair(b, gb[g2]), ('body', b),
+                              ('pinned', gb[g2]))] * 6
+    for g2 in sc.pinned_geoms:
+        for f in range(2):
+            plan += [LaneSpec(sc.mu_finger(gb[g2]), ('pinned', gb[g2]),
+                              ('finger', f))] * 9
     for g, g2 in sc.geom_pairs:
         b, b2 = gb[g], gb[g2]
         plan += [LaneSpec(sc.mu_pair(b, b2), ('body', b), ('body', b2))] * 10
@@ -113,7 +133,8 @@ def lane_plan(sc: D.MultiBodyConsts):
     for sp, g in _sphere_lanes(sc):
         plan.append(LaneSpec(sc.mu_sphere_plane, ('arm', sp), ('world',))
                     if g < 0 else
-                    LaneSpec(sc.mu_sphere(gb[g]), ('arm', sp), ('body', gb[g])))
+                    LaneSpec(sc.mu_sphere(gb[g]), ('arm', sp),
+                             _body_side(sc, gb[g])))
     return plan
 
 
@@ -129,12 +150,20 @@ def _stack(lanes, rows):
 
 @functools.lru_cache(maxsize=None)
 def _plan_positions(sc: D.MultiBodyConsts):
-    """Where each item's lanes start in `lane_plan`: ('geom', g), ('pair',
-    (g, g2)), 'pads', ('plane', sp) and ('sphere', sp, g)."""
+    """Where each item's lanes start in `lane_plan`: ('geom', g) (a free
+    geom's plane and fingers), ('pinned', g, g2) (free geom g against
+    pinned geom g2), ('fingers', g2) (pinned geom g2 against the fingers),
+    ('pair', (g, g2)), 'pads', ('plane', sp) and ('sphere', sp, g)."""
     pos, at = {}, 0
-    for g in sc.geom_order:
+    for g in sc.free_geoms:
         pos['geom', g] = at
         at += 22
+        for g2 in sc.pinned_geoms:
+            pos['pinned', g, g2] = at
+            at += 6
+    for g2 in sc.pinned_geoms:
+        pos['fingers', g2] = at
+        at += 18
     for p in sc.geom_pairs:
         pos['pair', p] = at
         at += 10
@@ -196,16 +225,32 @@ def build_lanes(sc: D.MultiBodyConsts, ch, bp, bq, R):
         blocks.append([x.reshape((N, -1) + x.shape[2:]) for x in fields])
         order.extend(places)
 
-    # per geom: the plane (4), then finger 0 and finger 1 (9 each)
-    for h, sel in _by_size(sc.geom_order, lambda g: half[g]):
+    def finger_lanes(c, Rg, h, k):
+        """Geoms (N x k) against finger 0, then finger 1 (9 lanes each)."""
+        return _stack(EP.sat_box_box_lanes(
+            rep(c, 2), rep(Rg, 2), h, flat(rep(fpos, k)),
+            rep(rep(Rb7, k), 2), fhalf, 0.0), N * k)
+
+    # per free geom: the plane (4), then finger 0 and finger 1 (9 each),
+    # then each pinned geom (one-sided 5 and the edge lane)
+    for h, sel in _by_size(sc.free_geoms, lambda g: half[g]):
         c, Rg, q = geoms(sel)
         k = len(sel)
         plane = _stack(EP.box_plane_lanes(c, q, h, sc.plane_z, 0.0), N * k)
-        fingers = _stack(EP.sat_box_box_lanes(
-            rep(c, 2), rep(Rg, 2), h, flat(rep(fpos, k)),
-            rep(rep(Rb7, k), 2), fhalf, 0.0), N * k)
-        add([torch.cat([a, b], 1) for a, b in zip(plane, fingers)],
+        add([torch.cat([a, b], 1)
+             for a, b in zip(plane, finger_lanes(c, Rg, h, k))],
             [pos['geom', g] + j for g in sel for j in range(22)])
+        for g2 in sc.pinned_geoms:
+            cb, Rb, _ = geoms([g2] * k)
+            args = (c, Rg, h, cb, Rb, half[g2], 0.0)
+            add(_stack(EP.sat_box_box_lanes(*args, one_sided=True)
+                       + EP.edge_lane(*args), N * k),
+                [pos['pinned', g, g2] + j for g in sel for j in range(6)])
+    # per pinned geom: finger 0 and finger 1 (9 each), the geom as side A
+    for h, sel in _by_size(sc.pinned_geoms, lambda g: half[g]):
+        c, Rg, _ = geoms(sel)
+        add(finger_lanes(c, Rg, h, len(sel)),
+            [pos['fingers', g] + j for g in sel for j in range(18)])
     # per geom pair of two bodies: the SAT manifold and the edge lane
     for (ha, hb), sel in _by_size(sc.geom_pairs,
                                   lambda p: (half[p[0]], half[p[1]])):
@@ -302,7 +347,9 @@ def lane_meta(sc: D.MultiBodyConsts, like):
         arm_sgn=t([arm_sgn(sa, sb) for sa, sb in sides]),
         ee_sgn=t([ee_sgn(sa, sb) for sa, sb in sides]),
         inv_mass=t(list(sc.inv_mass)),
-        inv_inertia=t([list(x) for x in sc.inv_inertia]))
+        inv_inertia=t([list(x) for x in sc.inv_inertia]),
+        # per body, pinned: (NB, 1), None where the scene has none
+        pinned=t(sc.pinned, torch.bool)[:, None] if any(sc.pinned) else None)
     _META[key] = m
     return m
 
@@ -340,12 +387,16 @@ def substep(sc: D.MultiBodyConsts, carry, qt, ft):
     fqd = fqd + torch.clamp(fv_des - fqd, -fdv, fdv)
 
     # 4. gravity on the free bodies
+    m = lane_meta(sc, q)
+    pinned = m['pinned']
+    bp0, bv0, bw0 = bp, bv, bw
     bv = torch.cat([bv[..., :2], bv[..., 2:] - D.GRAVITY * dt], -1)
+    if pinned is not None:
+        bv = torch.where(pinned, bv0, bv)
     R = qmat(bq)                                            # (N, NB, 3, 3)
 
     # 5. contacts
     pts, nrm, pen, act = build_lanes(sc, ch, bp, bq, R)     # (N, L, ...)
-    m = lane_meta(sc, q)
 
     # 6. solve (fused Jacobi with mass splitting)
     ii = m['inv_inertia']
@@ -480,7 +531,14 @@ def substep(sc: D.MultiBodyConsts, carry, qt, ft):
     half_ang = w_norm * dt * 0.5
     s = torch.where(w_norm > 1e-9, torch.sin(half_ang) / w_norm, 0.0)
     dq_rot = torch.cat([torch.cos(half_ang)[..., None], bw_ * s[..., None]], -1)
-    bq = EP.qnormalize(qmul(dq_rot, bq))
+    bq_new = EP.qnormalize(qmul(dq_rot, bq))
+    if pinned is not None:
+        # a pinned body's pose and velocities pass through
+        bp = torch.where(pinned, bp0, bp)
+        bq_new = torch.where(pinned, bq, bq_new)
+        bv_ = torch.where(pinned, bv0, bv_)
+        bw_ = torch.where(pinned, bw0, bw_)
+    bq = bq_new
     fq = torch.clamp(fq + fqd_ * dt, EP._FQ_LO, EP._FQ_HI)
     fqd_ = torch.where((fq >= EP._FQ_HI) & (fqd_ > 0), 0.0,
                        torch.where((fq <= EP._FQ_LO) & (fqd_ < 0), 0.0, fqd_))

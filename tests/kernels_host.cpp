@@ -32,14 +32,16 @@ extern "C" int engine_host(int has_body, int plane_mask, int geom_mask,
 
 extern "C" int multibody_host(int nb, int ng, unsigned geom_bodies,
                               int plane_mask, unsigned long long geom_masks,
-                              int offset_geoms, const float* st,
-                              const float* ctl, const float* prm, float* out,
-                              int n, int n_sub, int iters) {
-#define MULTIBODY_CASE(NB, NG, GB, PM, GM, OM)                            \
+                              int offset_geoms, int pinned_bodies,
+                              const float* st, const float* ctl,
+                              const float* prm, float* out, int n, int n_sub,
+                              int iters) {
+#define MULTIBODY_CASE(NB, NG, GB, PM, GM, OM, PIN)                       \
     if (nb == NB && ng == NG && geom_bodies == GB && plane_mask == PM &&  \
-        geom_masks == GM##ULL && offset_geoms == OM) {                    \
+        geom_masks == GM##ULL && offset_geoms == OM &&                    \
+        pinned_bodies == PIN) {                                           \
         for (int i = 0; i < n; ++i)                                       \
-            kin::mb::multibody_env<NB, NG, GB, PM, GM##ULL, OM>(          \
+            kin::mb::multibody_env<NB, NG, GB, PM, GM##ULL, OM, PIN>(     \
                 st, ctl, prm, out, n, i, n_sub, iters);                   \
         return 0;                                                         \
     }

@@ -1,6 +1,7 @@
 """The port stands alone: importing it and stepping an env of each family
 (reach, and block_rearrange on the multi-body engine), and resetting a
-push-primitive env, loads neither JAX nor any module of the JAX package,
+push-primitive env and an insertion env, loads neither JAX nor any module
+of the JAX package,
 and its entry point asks for CUDA unless the caller passes
 ``device='cpu'``."""
 
@@ -38,6 +39,10 @@ prim = port.make_vec_env(num_envs=2, task='primitive_push_assemble',
 pstate, pobs = prim.reset()
 prim.core.step_decode_waypoints(torch.zeros((2, 3)))
 interop.state_to_numpy(pstate)
+ins = port.make_vec_env(num_envs=2, task='insertion', device='cpu')
+istate, iobs = ins.reset()
+ins.core.step_decode_pre(istate, torch.zeros((2, 7)))
+interop.state_to_numpy(istate)
 demonstrator.StepDemonstrator(demonstrator.default_demonstrations(2))
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.')
@@ -45,7 +50,8 @@ bad = sorted(m for m in sys.modules
              or m.startswith('pybullet_multigoal_gym_tpu.'))
 print(json.dumps({'bad': bad, 'obs': list(obs['observation'].shape),
                   'multi_obs': list(mobs['observation'].shape),
-                  'prim_obs': list(pobs['observation'].shape)}))
+                  'prim_obs': list(pobs['observation'].shape),
+                  'ins_obs': list(iobs['observation'].shape)}))
 '''
 
 
@@ -85,7 +91,7 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res == {'bad': [], 'obs': [2, 3], 'multi_obs': [2, 24],
-                   'prim_obs': [2, 12]}
+                   'prim_obs': [2, 12], 'ins_obs': [2, 24]}
 
 
 def test_default_device_is_cuda():

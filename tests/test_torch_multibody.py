@@ -117,12 +117,25 @@ def test_lane_plan_matches_pallas_count(nb, joint_control):
 
 
 def test_unsupported_scenes_raise():
-    for spec in (S.multi_step_scene(2, chest=True), S.insertion_scene()):
-        with pytest.raises(NotImplementedError, match='later slice'):
-            D.multibody_consts(spec)
+    with pytest.raises(NotImplementedError, match='later slice'):
+        D.multibody_consts(S.multi_step_scene(2, chest=True))
     with pytest.raises(NotImplementedError, match='later slice'):
         make_vec_env(num_envs=2, task='chest_push', num_block=2,
                      device='cpu')
+
+
+def test_insertion_scene_builds():
+    """A pinned body builds: the slot's mass 0 gives inverse mass and
+    inertia 0, as the XLA engine has them, and a pinned mask; the plan's
+    geom pairs are those of two free bodies (none here)."""
+    sc = D.multibody_consts(S.insertion_scene())
+    eng = JD.Engine(JS.insertion_scene())
+    np.testing.assert_allclose(sc.inv_mass, eng.body_inv_mass, rtol=1e-7)
+    np.testing.assert_allclose(sc.inv_inertia, eng.body_inv_inertia,
+                               rtol=1e-6)
+    assert sc.pinned == (False, True) and sc.inv_mass[1] == 0.0
+    assert sc.free_geoms == [0] and sc.pinned_geoms == [1, 2, 3, 4]
+    assert sc.geom_pairs == []
 
 
 @pytest.mark.parametrize('keys', [('slot', 'cube'), ('rectangle',)])

@@ -11,6 +11,7 @@ from pybullet_multigoal_gym_tpu_torch.model import kuka_model as KM
 from pybullet_multigoal_gym_tpu_torch.ops import dynamics as D
 from pybullet_multigoal_gym_tpu_torch.ops import engine_plain as EP
 from pybullet_multigoal_gym_tpu_torch.ops import multibody_plain as MP
+from pybullet_multigoal_gym_tpu_torch.ops import scene as S
 
 ARM_FIELDS = ('q', 'qd', 'fq', 'fqd')
 BODY_FIELDS = ('body_pos', 'body_quat', 'body_linvel', 'body_angvel')
@@ -248,7 +249,8 @@ def plain_run(sc, st, ctl, n_sub, noise_seed=None):
     ops/multibody_plain.py for a K3 scene, substep by substep, as their
     `control_step` runs it). Returns the state after it and, per lane
     group, the share of envs where a lane of the group is active in some
-    substep (K3's box-box lanes also per geom pair, 'box-box g-g2'). With
+    substep (K3's box-box lanes also per geom pair, 'box-box g-g2', and
+    the edge lanes of the box-pinned group, 'box-pinned edge'). With
     ``noise_seed``, every element of the state moves by -1, 0 or +1 ulp
     (seeded) before each substep instead, and no shares are kept: the
     spread of such runs is the plain version's own sensitivity to rounding,
@@ -258,9 +260,13 @@ def plain_run(sc, st, ctl, n_sub, noise_seed=None):
         carry = (st.q, st.qd, st.fq, st.fqd, st.body_pos, st.body_quat,
                  st.body_linvel, st.body_angvel)
         groups = [MP.lane_group(l) for l in MP.lane_plan(sc)]
-        # the pair lanes follow the 22 lanes of each geom, 10 per geom pair
-        pairs = [(k, 'box-box %d-%d' % sc.geom_pairs[(k - 22 * sc.ng) // 10])
-                 for k, grp in enumerate(groups) if grp == 'box-box']
+        # per geom pair of two free bodies its 10 lanes, and the edge lane
+        # of each free geom against each pinned geom
+        pos = MP._plan_positions(sc)
+        pairs = [(pos['pair', p] + j, 'box-box %d-%d' % p)
+                 for p in sc.geom_pairs for j in range(10)]
+        pairs += [(at + 5, 'box-pinned edge') for key, at in pos.items()
+                  if key[0] == 'pinned']
     else:
         carry = (st.q, st.qd, st.fq, st.fqd, st.body_pos[:, 0],
                  st.body_quat[:, 0], st.body_linvel[:, 0],
@@ -303,16 +309,25 @@ def noise_bound(sc, st, ctl, n_sub, ref, errors, tol, runs=8, factor=2.0):
     """Per-env bounds from the plain version's own sensitivity to rounding:
     ``runs`` noisy plain runs (`plain_run`), each env's spread (the largest
     ``errors(run, ref)``, a (N,) tensor) and its bound, the larger of
-    ``tol`` and ``factor`` times the spread. Also how far a noisy run itself
-    lies beyond the bound that the other runs set: in a chaotic state (a
-    squeezed pile after 100 substeps) a run can take a branch of a contact
-    decision that none of the others takes, and another rounding of the
-    same physics, the kernel's, may too. ``allowed`` is the most envs one
-    run puts beyond the others' bound, ``cap`` the largest share of that
-    bound such an env reaches (1 where no run leaves it). Returns (bound,
-    spread, allowed, cap)."""
+    ``tol`` and ``factor`` times the spread. The runs go as one batch of
+    ``runs`` copies of the N envs, each copy with its own noise (the same
+    arithmetic per env as ``runs`` separate runs, in one pass). Also how
+    far a noisy run itself lies beyond the bound that the other runs set:
+    in a chaotic state (a squeezed pile after 100 substeps) a run can take
+    a branch of a contact decision that none of the others takes, and
+    another rounding of the same physics, the kernel's, may too.
+    ``allowed`` is the most envs one run puts beyond the others' bound,
+    ``cap`` the largest share of that bound such an env reaches (1 where
+    no run leaves it). Returns (bound, spread, allowed, cap)."""
+    count = st.q.shape[0]
+
+    def tile(nt):
+        return type(nt)(*(torch.cat([x] * runs) for x in nt))
+
+    out = plain_run(sc, tile(st), tile(ctl), n_sub, noise_seed=0)[0]
     errs = torch.stack([torch.as_tensor(errors(
-        plain_run(sc, st, ctl, n_sub, seed)[0], ref)) for seed in range(runs)])
+        type(out)(*(x[k * count:(k + 1) * count] for x in out)), ref))
+        for k in range(runs)])
     spread = errs.max(0).values
     allowed, cap = 0, 1.0
     for k in range(runs):
@@ -413,4 +428,150 @@ def primitive_inputs(keys, kind, count, seed=0):
                     q_init=q, rest_pose=rest_t, num_iters=16)
     st.update(q=n(q), qd=u(-0.05, 0.05, (count, 7)))
     ctl.update(q_target=n(push))
+    return st, ctl
+
+
+# the insertion scene: body 0 the rectangle (free), body 1 the slot
+# (pinned); the slot's end bar sits at (-0.06, 0, 0) in its frame
+_SLOT_END_BAR = np.array([-0.06, 0.0, 0.0], np.float32)
+
+
+def _yaw(a):
+    """Unit quaternions (numpy wxyz) of yaws ``a``."""
+    a = np.asarray(a, np.float32) * 0.5
+    return np.stack([np.cos(a), 0 * a, 0 * a, np.sin(a)], -1).astype(
+        np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _sphere_on_slot_configs(seed):
+    """Arm configurations drawn around the rest pose within the joint
+    limits whose lowest wrist or elbow sphere (links 4-6) hangs over the
+    workspace, each with the slot placed so that its end bar lies under
+    that sphere, its top 0-2 mm into the sphere, and the rectangle where
+    'slot_pressed' puts it; kept where no other lane acts, and no finger
+    pad comes within 1 cm of the slot or the rectangle. Returns (q (M, 7),
+    slot position (M, 3))."""
+    import dataclasses
+    rng = np.random.default_rng(seed)
+    lo = np.asarray(KM.JOINT_LIMIT_LOWER, np.float32)
+    hi = np.asarray(KM.JOINT_LIMIT_UPPER, np.float32)
+    cand = np.clip(np.asarray(KM.KUKA_REST_POSE, np.float32)
+                   + rng.uniform(-1.6, 1.6, (16384, 7)).astype(np.float32),
+                   lo, hi)
+    fq = torch.zeros((len(cand), 2))
+    ch = EP.fk_chain(t(cand), fq)
+    spheres = n(ch['spheres'])
+    bottom = spheres[..., 2] - np.asarray(KM.ARM_SPHERE_RADIUS, np.float32)
+    wrist = np.asarray(KM.ARM_SPHERE_LINK) >= 4
+    low = np.nonzero(wrist)[0][bottom[:, wrist].argmin(1)]
+    rows = np.arange(len(cand))
+    c, b = spheres[rows, low], bottom[rows, low]
+    keep = ((b > 0.06) & (b < 0.3) & (c[:, 0] > -0.75) & (c[:, 0] < -0.35)
+            & (np.abs(c[:, 1]) < 0.25))
+    cand, c, b = cand[keep], c[keep], b[keep]
+    slot = np.stack([c[:, 0], c[:, 1], b + rng.uniform(0.0, 0.002, len(b))
+                     .astype(np.float32) - 0.015], -1) - _SLOT_END_BAR
+    rect = slot + np.array([0.05, 0.0, 0.025], np.float32)
+    bp = t(np.stack([rect, slot], 1))
+    bq = t(np.stack([_yaw(np.full(len(b), 0.25)), _yaw(np.zeros(len(b)))],
+                    1))
+    sc = D.multibody_consts(S.insertion_scene())
+    groups = np.array([MP.lane_group(l) for l in MP.lane_plan(sc)])
+    ch = EP.fk_chain(t(cand), torch.zeros((len(cand), 2)))
+    act = n(MP.build_lanes(sc, ch, bp, bq, EP.qmat(bq))[3]) > 0
+    # the pads 1 cm clear: no finger lane acts on geoms 1 cm larger
+    wide = dataclasses.replace(sc, geom_half=tuple(
+        tuple(x + 0.01 for x in h) for h in sc.geom_half))
+    near = n(MP.build_lanes(wide, ch, bp, bq, EP.qmat(bq))[3]) > 0
+    fingers = np.isin(groups, ('finger-box', 'finger-pinned'))
+    ok = (act[:, groups == 'sphere-pinned'].any(1)
+          & ~act[:, groups != 'sphere-pinned'].any(1)
+          & ~near[:, fingers].any(1))
+    assert ok.sum() >= 16, ok.sum()
+    return cand[ok], slot[ok]
+
+
+def insertion_inputs(kind, count, seed=0):
+    """Physics state and controls (numpy) for the insertion scene (body 0
+    the rectangle, body 1 the pinned slot):
+    'drop': the objects where a reset puts them, jittered (the slot resting
+    on the plate, the rectangle up to 4 mm above it, each turned, the
+    rectangle slightly tilted), the arm at the family's rest pose, the
+    fingers closed.
+    'load' (the JAX package's own state, tests/test_pallas_multibody.py:
+    118-167): the rectangle on the slot's mouth between the finger pads,
+    the pads resting on the slot's prongs and squeezing (box-pinned,
+    finger-box and finger-pinned lanes act). Env 0 is that state itself;
+    every other env's scene is turned about the arm's base axis by its own
+    angle (the arm's first joint and the bodies together), which moves
+    every bit and not the physics. The state is a nest of ties (the pads'
+    faces on the rectangle's, its bottom edges on the pocket's, the pads'
+    bottoms on the prongs' tops), so rounding alone decides contact
+    branches in it from the first substep. (Jitter that presses a pad
+    into a prong is worse: the pad's vertical lanes are then nearly
+    degenerate, the finger moving only sideways, and their impulses run to
+    thousands of N s, in the reference's engine too.)
+    'slot_pressed' (:170-200): the rectangle, yawed 0.25 rad, moving into
+    the slot's base bar at 0.25 m/s (box-pinned lanes, its edge lane among
+    them, act), and an arm configuration whose wrist or elbow sphere rests
+    on the slot's end bar while the arm holds (sphere-pinned lanes act;
+    `_sphere_on_slot_configs`)."""
+    rng = np.random.default_rng(seed)
+
+    def u(lo, hi, shape):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    st = mk_state(False, count, seed)
+    z3 = np.zeros((count, 2, 3), np.float32)
+    st.update(body_linvel=z3, body_angvel=z3.copy())
+    ctl = mk_controls(count)
+    if kind == 'drop':
+        rest = primitive_rest()
+        xy = (np.array([[-0.46, -0.07], [-0.60, 0.06]], np.float32)[None]
+              + u(-0.02, 0.02, (count, 2, 2)))
+        z = np.stack([0.06 + u(0.0, 0.004, (count,)),
+                      np.full(count, 0.03, np.float32)], -1)[..., None]
+        quat = _yaw_tilt(rng, (count, 2), np.pi, 0.02)
+        quat[:, 1] = _yaw(u(-np.pi, np.pi, (count,)))
+        st.update(q=np.tile(rest, (count, 1)),
+                  fq=np.full((count, 2), KM.FINGER_LIMIT, np.float32),
+                  body_pos=np.concatenate([xy, z], -1), body_quat=quat)
+        ctl.update(q_target=st['q'].copy(),
+                   f_target=np.full((count, 2), KM.FINGER_LIMIT, np.float32))
+        return st, ctl
+    if kind == 'load':
+        fq0 = np.full((1, 2), 0.02, np.float32)
+        q = np.asarray(KM.KUKA_REST_POSE, np.float32)[None]
+        mid = n(EP.fk_chain(t(q), t(fq0))['fpos'])[0].mean(0)
+        bodies = np.stack([mid, mid + np.array([0.03, 0.0, -0.055])])
+        turn = u(-0.3, 0.3, (count,))
+        turn[0] = 0.0           # env 0: the JAX package's state itself
+        c, s_ = np.cos(turn)[:, None], np.sin(turn)[:, None]
+        x, y = bodies[None, :, 0], bodies[None, :, 1]
+        q = np.tile(q, (count, 1))
+        q[:, 0] += turn
+        st.update(q=q, fq=np.tile(fq0, (count, 1)),
+                  body_pos=np.stack([c * x - s_ * y, s_ * x + c * y,
+                                     np.broadcast_to(bodies[None, :, 2],
+                                                     (count, 2))], -1)
+                  .astype(np.float32),
+                  body_quat=np.repeat(_yaw(turn)[:, None], 2, 1))
+        ctl.update(q_target=q.copy())
+        return st, ctl
+    assert kind == 'slot_pressed', kind
+    q, slot = _sphere_on_slot_configs(seed)
+    pick = rng.integers(0, len(q), count)
+    slot = slot[pick]
+    rect = slot + np.array([0.05, 0.0, 0.025], np.float32) + u(
+        -0.001, 0.001, (count, 3))
+    vel = np.zeros((count, 2, 3), np.float32)
+    vel[:, 0, 0] = -0.25 + u(-0.05, 0.05, (count,))
+    st.update(q=q[pick], qd=u(-0.02, 0.02, (count, 7)),
+              body_pos=np.stack([rect, slot], 1),
+              body_quat=np.stack([_yaw(0.25 + u(-0.05, 0.05, (count,))),
+                                  _yaw(np.zeros(count))], 1),
+              body_linvel=vel)
+    ctl.update(q_target=q[pick] + u(-0.01, 0.01, (count, 7)),
+               f_target=np.zeros((count, 2), np.float32))
     return st, ctl
