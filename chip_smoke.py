@@ -13,9 +13,13 @@ envs, 60 steps across one auto-reset) and block_stack with 5 (1024 envs) on
 K1 and K3, and the push primitives (primitive_push_assemble with
 discrete_push and primitive_push_reach with continuous_push, 1024 envs: 20
 K1 launches at 16 iterations and 20 K3 launches of 80 substeps per step) on
-K1 and K3's bodies of several geoms, and insertion (1024 envs, 60 steps
+K1 and K3's bodies of several geoms, insertion (1024 envs, 60 steps
 across one auto-reset: K1 toward a rotation target, K3 with a pinned body)
-on K1 and K3's pinned-body lanes. One JSON line per check or phase, each
+on K1 and K3's pinned-body lanes, and the chest tasks (chest_push with 4
+and 2 blocks at 1024 envs for 60 steps across one auto-reset,
+chest_pick_and_place for 5, its 558-lane joint-control plan for one, and a
+door-opening drive) on K1 and K3's static-wall and door lanes. One JSON
+line per check or phase, each
 with the ``seconds`` since the line before it; the kernels line, the card's
 name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``. Stops at the first failure with a non-zero exit and no result;
@@ -39,6 +43,11 @@ PRIM_ENVS, PRIM_STEPS, PRIM_TIMED_FROM = 1024, 12, 2
 PRIM_SUBSTEPS, PRIM_LAUNCHES = 80, 20
 # insertion runs at 1024 envs (the README's configuration)
 INS_ENVS, INS_STEPS, INS_TIMED_FROM = 1024, MAIN_STEPS, TIMED_FROM
+# chest_push with 4 blocks and 2 runs at 1024 envs (the README's
+# configurations), chest_pick_and_place too; the door-opening drive runs
+# until its sweep has ended in every env or for this many steps
+CHEST_ENVS, CHEST_STEPS, CHEST_TIMED_FROM = 1024, MAIN_STEPS, TIMED_FROM
+DOOR_DRIVE_STEPS = 150
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 (non-tensor)
 # operations/s; a card below 700 W runs slower than these
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -117,12 +126,14 @@ def main_path_inputs(torch, port, task, at=(0, 25), seed=2, num_envs=N_ENVS,
     rest = torch.as_tensor(core.rest_pose, device='cuda').expand(num_envs, 7)
     state, _ = env.reset()
     g = torch.Generator(device='cuda').manual_seed(seed)
+    # the chest door's hold-open motor, as VecMGEnv.step drives it
+    door_target = (env.cfg.chest_door_opened_state if env.cfg.has_chest
+                   else 0.0)
     out = []
     for i in range(max(at) + 1):
         action = actions(torch, env, g, (num_envs,))
         if i in at:
             dec, f_target = core.step_decode_pre(state, action)
-            zero = dec.phys.door_q
             out.append(dict(
                 step=i + 1, target=dec.ee_target, q_init=dec.phys.q, rest=rest,
                 target_quat=(Q.euler_zyz_to_quat(dec.ee_target_rot)
@@ -130,7 +141,9 @@ def main_path_inputs(torch, port, task, at=(0, 25), seed=2, num_envs=N_ENVS,
                              else None),
                 phys=dec.phys, scene=core.scene, controls=D.Controls(
                     q_target=core.arm_targets(dec), f_target=f_target,
-                    door_motor_on=zero > 0, door_target=zero)))
+                    door_motor_on=dec.door_hold_open,
+                    door_target=torch.full_like(dec.phys.door_q,
+                                                door_target))))
         state, *_ = env.step(state, action)
     return out
 
@@ -317,7 +330,7 @@ def engine_inputs(has_obj, kind):
 def env_errors(out, ref, n_fields):
     """Per-env max |out - ref| over the first ``n_fields`` state fields."""
     import torch
-    return torch.stack([(a - b).abs().flatten(1).max(1).values
+    return torch.stack([(a - b).abs().reshape(a.shape[0], -1).max(1).values
                         for a, b in zip(out[:n_fields], ref[:n_fields])]
                        ).max(0).values
 
@@ -553,6 +566,19 @@ def phase_engine(kernels, captured, count_lib):
 # joint-control scene keeps every arm-sphere lane
 K3_STRESS = ((2, 'ee', 'contact'), (5, 'ee', 'contact'), (2, 'joint', 'sphere'))
 N_FIELDS = 8        # q, qd, fq, fqd and the bodies' pos, quat, linvel, angvel
+CHEST_FIELDS = 10   # and the door's q and qd
+# the chest's stress checks, 2 blocks (tests/torch_common.py:chest_inputs):
+# (task, state, substeps); each state after 2 substeps, the block pressed
+# against chest_push's door after 100 too (the card tests hold it there,
+# and chest_push's main path after 100)
+CHEST_STRESS = tuple(
+    (task, kind, FLAT if (task, kind) == ('chest_push', 'door_block')
+     else FLAT[:1])
+    for task in ('chest_push', 'chest_pick_and_place')
+    for kind in ('drop', 'handle', 'door_block', 'hold_open', 'spawn'))
+# the lane groups the chest brings, each to act in some chest stress state
+CHEST_GROUPS = ('box-static', 'box-door', 'finger-door', 'finger-static',
+                'sphere-static', 'sphere-door')
 
 
 def phase_multibody(kernels, captured, count_lib):
@@ -584,14 +610,16 @@ def phase_multibody(kernels, captured, count_lib):
     Timed on both block main paths' and insertion's step-26 inputs (100
     substeps) and on the primitive's contact sub-target (80): the kernel
     alone on inputs packed once (``ms``) and the wrapper's whole call
-    (``call_ms``); the operations are counted on the same inputs."""
-    import torch
+    (``call_ms``); the operations are counted on the same inputs
+    (`k3_timing`). The chest's checks and timing come after every other
+    K3 launch (`phase_chest_k3`): the runtime keeps per-thread local memory
+    for the largest stack launched so far, and the larger reservation of a
+    chest kernel moves other kernels' times (the primitive's by up to 6
+    %)."""
     from pybullet_multigoal_gym_tpu_torch.ops import dynamics as D
-    from pybullet_multigoal_gym_tpu_torch.ops import multibody_plain as MP
     from pybullet_multigoal_gym_tpu_torch.ops import scene as S
     from pybullet_multigoal_gym_tpu_torch.ops.cuda_multibody import (
-        CudaMultiBodyEngine, n_rows, pack, scene_key)
-    from tests.kernel_ops import multibody_ops
+        CudaMultiBodyEngine)
     from tests.torch_common import multi_inputs, torch_controls, torch_state
     worst = 0.0
     for task in ('block_rearrange', 'block_stack'):
@@ -611,35 +639,55 @@ def phase_multibody(kernels, captured, count_lib):
     phase_primitive_k3(captured['primitive'][-1])
     ins_worst = phase_insertion_k3(captured['insertion'])
 
-    res = {}
     timed = [(task, captured[task][-1], 100)
              for task in ('block_rearrange', 'block_stack', 'insertion')]
     timed.append(('primitive_push_assemble', captured['primitive'][-1],
                   PRIM_SUBSTEPS))
-    for task, c, n_sub in timed:
-        sc, st, ctl = c['scene'], c['phys'], c['controls']
-        w = CudaMultiBodyEngine(sc)
-        n = st.q.shape[0]
-        rows, ctl_rows = pack(st, ctl)
-        out = torch.empty_like(rows)
-        ms = time_ms(lambda: w.launch(rows, ctl_rows, out, n_sub), 10)
-        call_ms = time_ms(lambda: w.control_step(st, ctl, n_sub), 10)
-        plain_ms = time_ms(lambda: MP.control_step(sc, st, ctl, n_sub), 1)
-        ops, _ = multibody_ops(count_lib, sc, st, ctl, n_sub)
-        b_ms, b_by = bound_ms(n * (2 * n_rows(sc.nb) + 11) * 4, ops)
-        res[task] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, ops=ops)
-        mangled = 'ILi%dELi%dELj%dELi%dELy%dELi%dELi%dEE' % scene_key(sc)
-        emit('k3_timing', task=task, bodies=sc.nb, geoms=sc.ng,
-             inputs=main_path_name(c),
-             substeps=n_sub, envs=n, lanes=len(MP.lane_plan(sc)),
-             launches_per_env_step=(PRIM_LAUNCHES if 'sub_target' in c
-                                    else 1), **res[task],
-             ptxas=[p for p in kernels['multibody'].ptxas
-                    if mangled in p['function']])
+    res = {task: k3_timing(kernels, count_lib, task, c, n_sub)
+           for task, c, n_sub in timed}
     res['block_rearrange']['max_abs_err'] = worst
     res['insertion']['max_abs_err'] = ins_worst
     return res
+
+
+def k3_timing(kernels, count_lib, task, c, n_sub):
+    """K3 timed on a main path's own inputs ``c``: the kernel alone on
+    inputs packed once (``ms``), the wrapper's whole call (``call_ms``),
+    the plain version, and the bound from the operations counted on the
+    same inputs (tests/kernel_ops.py); the instance's registers, stack and
+    spills. Returns the figures."""
+    import torch
+    from pybullet_multigoal_gym_tpu_torch.ops import multibody_plain as MP
+    from pybullet_multigoal_gym_tpu_torch.ops.cuda_multibody import (
+        CudaMultiBodyEngine, library, n_rows, pack, scene_key)
+    from tests.kernel_ops import multibody_ops
+    sc, st, ctl = c['scene'], c['phys'], c['controls']
+    w = CudaMultiBodyEngine(sc)
+    n = st.q.shape[0]
+    rows, ctl_rows = pack(st, ctl)
+    out = torch.empty_like(rows)
+    ms = time_ms(lambda: w.launch(rows, ctl_rows, out, n_sub), 10)
+    call_ms = time_ms(lambda: w.control_step(st, ctl, n_sub), 10)
+    plain_ms = time_ms(lambda: MP.control_step(sc, st, ctl, n_sub), 1)
+    ops, _ = multibody_ops(count_lib, sc, st, ctl, n_sub)
+    b_ms, b_by = bound_ms(n * (2 * n_rows(sc.nb) + 11) * 4, ops)
+    res = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, ops=ops)
+    mangled = mangled_scene(scene_key(sc))
+    emit('k3_timing', task=task, bodies=sc.nb, geoms=sc.ng,
+         inputs=main_path_name(c), substeps=n_sub, envs=n,
+         lanes=len(MP.lane_plan(sc)),
+         launches_per_env_step=PRIM_LAUNCHES if 'sub_target' in c else 1,
+         **res, ptxas=[p for p in kernels[library(sc)].ptxas
+                       if mangled in p['function']])
+    return res
+
+
+def mangled_scene(key):
+    """The template arguments of a K3 instance as they appear in its
+    mangled name (ptxas reports per entry function)."""
+    return ('ILi%dELi%dELj%dELi%dELy%dELi%dELi%dELi%dELj%dELi%dELi%dEE'
+            % key)
 
 
 def phase_primitive_k3(c):
@@ -709,6 +757,214 @@ def phase_insertion_k3(captured):
         raise AssertionError('no insertion stress state activates the '
                              'lane groups %s: %s' % (idle, acting))
     return worst
+
+
+def phase_chest_k3(torch, port, kernels, count_lib):
+    """K3 on chest_push's main path with 4 blocks (steps 1 and 26 of a
+    seeded drive at 1024 envs, `main_path_check`, the door's state among
+    the fields held; `k3_timing` on step 26's inputs) and on the chest's
+    stress states with 2 blocks
+    (tests/torch_common.py:chest_inputs: the blocks dropped beside and
+    inside the open chest, the pads sweeping the door's handle, a block
+    pressed against the closed door, the door's motor holding it at its
+    stop while the arm leans on a wall, the reset pose; `stress_check`),
+    for both doors, where each group of CHEST_GROUPS must act in some env:
+    their largest shares are printed. Returns the timing's figures, with
+    the main path's largest error."""
+    from pybullet_multigoal_gym_tpu_torch.ops import dynamics as D
+    from pybullet_multigoal_gym_tpu_torch.ops import scene as S
+    from pybullet_multigoal_gym_tpu_torch.ops.cuda_multibody import (
+        CudaMultiBodyEngine)
+    from tests.torch_common import (CHEST_DOOR, chest_inputs, torch_controls,
+                                    torch_state)
+    captured = main_path_inputs(torch, port, 'chest_push',
+                                num_envs=CHEST_ENVS, num_block=4)
+    sc = captured[0]['scene']
+    w = CudaMultiBodyEngine(sc)
+    worst = max(main_path_check('k3_vs_plain', sc, w, c, CHEST_FIELDS,
+                                task='chest_push', blocks=sc.nb, control='ee')
+                for c in captured)
+    res = k3_timing(kernels, count_lib, 'chest_push', captured[-1], 100)
+    shares = {}
+    for task, kind, substeps in CHEST_STRESS:
+        sc2 = D.multibody_consts(S.multi_step_scene(2, True, CHEST_DOOR[task]))
+        st, ctl = chest_inputs(CHEST_DOOR[task], 2, kind, CHEST_ENVS)
+        shares[task, kind] = stress_check(
+            'k3_vs_plain', sc2, CudaMultiBodyEngine(sc2),
+            torch_state(st, 'cuda'), torch_controls(ctl, 'cuda'),
+            CHEST_FIELDS, substeps=substeps, task=task, blocks=2,
+            control='ee', inputs=kind)
+    acting = {g: {'%s %s' % k: v[g] for k, v in shares.items()
+                  if v.get(g, 0.0) > 0} for g in CHEST_GROUPS}
+    emit('k3_chest_lanes_active', envs=CHEST_ENVS, blocks=2,
+         share_of_envs=acting)
+    idle = [g for g, v in acting.items() if not v]
+    if idle:
+        raise AssertionError('no chest stress state activates the lane '
+                             'groups %s: %s' % (idle, shares))
+    return dict(res, max_abs_err=worst)
+
+
+def phase_chest_largest(torch, port, kernels):
+    """The largest plan of the suite once: chest_pick_and_place with 5
+    blocks under joint control (every arm-sphere lane kept), one step at
+    1024 envs through `make_vec_env`, with the device memory free before
+    and after (the card reserves the kernel's per-thread stack for every
+    thread it can hold at its first launch); then K3 on that step's inputs
+    against its plain version on 64 envs after 2 substeps
+    (`main_path_check`)."""
+    from pybullet_multigoal_gym_tpu_torch.ops import multibody_plain as MP
+    from pybullet_multigoal_gym_tpu_torch.ops.cuda_multibody import (
+        CudaMultiBodyEngine, library, scene_key)
+    torch.cuda.synchronize()
+    free_before = torch.cuda.mem_get_info()
+    c = main_path_inputs(torch, port, 'chest_pick_and_place', at=(0,),
+                         seed=3, num_envs=CHEST_ENVS, num_block=5,
+                         joint_control=True)[0]
+    torch.cuda.synchronize()
+    free_after = torch.cuda.mem_get_info()
+    sc = c['scene']
+    emit('chest_largest_plan', task='chest_pick_and_place', blocks=sc.nb,
+         control='joint', envs=CHEST_ENVS, lanes=len(MP.lane_plan(sc)),
+         mem_free_before=free_before[0], mem_free_after=free_after[0],
+         mem_total=free_before[1],
+         ptxas=[p for p in kernels[library(sc)].ptxas
+                if mangled_scene(scene_key(sc)) in p['function']])
+    few = dict(c, phys=type(c['phys'])(*(x[:64] for x in c['phys'])),
+               controls=type(c['controls'])(*(x[:64] for x in
+                                               c['controls'])))
+    main_path_check('k3_vs_plain', sc, CudaMultiBodyEngine(sc), few,
+                    CHEST_FIELDS, substeps=FLAT[:1],
+                    task='chest_pick_and_place', blocks=sc.nb,
+                    control='joint', largest_plan=True)
+
+
+def phase_chest_main(torch, port):
+    """The chest main paths: chest_push with 4 blocks at 1024 envs for 60
+    steps (auto-reset at step 50), then its first 64 envs stepped once on
+    the card and on the CPU from one state (`chest_plain_check`), then
+    chest_push with 2 blocks for 60 steps and chest_pick_and_place with 1
+    for 5."""
+    want = dict(ik=CHEST_STEPS, engine=CHEST_STEPS)
+    out = {}
+    for nb, seed in ((4, 0), (2, 1)):
+        env, state, res = drive(torch, port, 'chest_push', CHEST_STEPS,
+                                seed=seed, num_envs=CHEST_ENVS,
+                                timed_from=CHEST_TIMED_FROM, num_block=nb)
+        emit('chest_push_path', card=card_line(), **res)
+        dims = {'observation': (CHEST_ENVS, 28 + 16 * nb),
+                'policy_state': (CHEST_ENVS, 23 + 3 * nb),
+                'achieved_goal': (CHEST_ENVS, 1 + 3 * nb),
+                'desired_goal': (CHEST_ENVS, 1 + 3 * nb)}
+        if not (res['obs_finite'] and res['shapes_ok']
+                and res['obs_shapes'] == dims
+                and res['done_steps'] == [50] and res['all_done_steps'] == [50]
+                and res['launches'] == want):
+            raise AssertionError('chest_push path check failed: %s' % res)
+        if nb == 4:
+            chest_plain_check(torch, port, state, 'chest_push', num_block=nb)
+        out[nb] = res
+    _, _, pick = drive(torch, port, 'chest_pick_and_place', 5, seed=2,
+                       num_envs=CHEST_ENVS, timed_from=1, num_block=1)
+    emit('chest_pick_and_place_path', card=card_line(), **pick)
+    if not (pick['obs_finite'] and pick['shapes_ok']
+            and pick['launches'] == dict(ik=5, engine=5)):
+        raise AssertionError('chest_pick_and_place path check failed: %s'
+                             % pick)
+    return out
+
+
+def chest_plain_check(torch, port, state, task, envs=64, tol=5e-3, **kw):
+    """The kernels' path against the plain path over one chest step: the
+    first ``envs`` envs of ``state`` stepped once on the card and on the CPU
+    from one state, with the door 5 mm from its open state in every other
+    env (the hold-open latch sets in the step) and the latch already set in
+    every fourth (the door's motor drives it open). The observation (the
+    door's q and qd and its keypoints among it) within ``tol``; the latch
+    equal wherever the door lies ``tol`` or more from the latch's
+    threshold."""
+    import numpy as np
+    from pybullet_multigoal_gym_tpu_torch import interop
+    leaves = {k: v[:envs] for k, v in interop.state_to_numpy(state).items()}
+    opened = np.float32(port.EnvConfig(task=task).chest_door_opened_state)
+    i = np.arange(envs)
+    leaves['.phys.door_q'] = np.where(i % 2 == 0, opened - np.float32(0.005),
+                                      leaves['.phys.door_q'])
+    leaves['.door_hold_open'] = leaves['.door_hold_open'] | (i % 4 == 1)
+    g = torch.Generator().manual_seed(5)
+    out = {}
+    for dev in ('cuda', 'cpu'):
+        e = port.make_vec_env(num_envs=envs, task=task, device=dev, **kw)
+        if dev == 'cuda':
+            action = actions(torch, e, g, (envs,))
+        s = interop.state_from_numpy(leaves, device=dev)
+        s, o, _, _, _ = e.step(s, action.to(dev))
+        out[dev] = dict(obs=o['observation'].cpu(),
+                        latch=s.door_hold_open.cpu(),
+                        door_q=s.phys.door_q.cpu())
+    err = (out['cuda']['obs'] - out['cpu']['obs']).abs().max(1).values
+    sure = ((opened - out['cpu']['door_q']).abs() - 0.01).abs() >= tol
+    differ = (out['cuda']['latch'] != out['cpu']['latch']) & sure
+    res = dict(task=task, **kw, envs=envs, steps=1,
+               compared='the observation (the door among it) and the '
+                        'hold-open latch', tol=tol,
+               max_abs_err_obs=float(err.max()),
+               envs_beyond_tol=int((err > tol).sum()),
+               latched=int(out['cpu']['latch'].sum()),
+               latch_compared=int(sure.sum()), latch_differ=int(differ.sum()))
+    emit('chest_vs_plain', **res)
+    if not (float(err.max()) <= tol and not differ.any()
+            and res['latched'] > 0):
+        raise AssertionError('%s: the kernel path disagrees with the plain '
+                             'path: %s' % (task, res))
+
+
+def phase_door_drive(torch, port):
+    """The door-opening drive: phases 0-3 of tests/policies.py:
+    ChestPushExpert for every env at once (rise, go above the handle, descend
+    to it, sweep +y; tests/torch_common.py:door_opening_action) through
+    `make_vec_env(task='chest_push', num_block=4)` at 1024 envs on the
+    kernels, until every env has ended its sweep or for DOOR_DRIVE_STEPS
+    steps (the TimeLimit beyond them). At least one env latches its door
+    open; in every latched env the door then stays at 0.11 or above under
+    the hold-open motor for the rest of the drive; the observations stay
+    finite and the blocks slower than 1 m/s (the bar of the JAX package's
+    `test_block_trapped_against_door_stalls`)."""
+    from tests.torch_common import door_opening_action
+    env = port.make_vec_env(num_envs=CHEST_ENVS, task='chest_push',
+                            num_block=4, seed=4,
+                            max_episode_steps=DOOR_DRIVE_STEPS + 1)
+    state, obs = env.reset()
+    core = env.core
+    core.ik.launches = core.engine.launches = 0
+    phase = torch.zeros(CHEST_ENVS, dtype=torch.long, device='cuda')
+    latched = torch.zeros(CHEST_ENVS, dtype=torch.bool, device='cuda')
+    low = torch.full((CHEST_ENVS,), float('inf'), device='cuda')
+    finite = torch.ones((), dtype=torch.bool, device='cuda')
+    speed = torch.zeros((), device='cuda')
+    for step in range(DOOR_DRIVE_STEPS):
+        a, phase = door_opening_action(obs, phase)
+        state, obs, _, _, _ = env.step(state, a)
+        # the door's value in each env latched before this step
+        low = torch.where(latched, torch.minimum(low, state.phys.door_q), low)
+        latched = state.door_hold_open
+        for v in obs_leaves(obs).values():
+            finite &= torch.isfinite(v).all()
+        speed = torch.maximum(speed, torch.linalg.vector_norm(
+            state.phys.body_linvel, dim=-1).max())
+        if bool((phase >= 4).all()):
+            break
+    res = dict(task='chest_push', blocks=4, envs=CHEST_ENVS, steps=step + 1,
+               share_swept=float((phase >= 4).float().mean()),
+               share_latched=float(latched.float().mean()),
+               min_door_q_after_latch=float(low.min()),
+               max_block_speed=float(speed), obs_finite=bool(finite),
+               launches=dict(ik=core.ik.launches, engine=core.engine.launches))
+    emit('chest_door_drive', **res)
+    if not (latched.any() and res['min_door_q_after_latch'] >= 0.11
+            and res['obs_finite'] and res['max_block_speed'] < 1.0
+            and res['launches'] == dict(ik=step + 1, engine=step + 1)):
+        raise AssertionError('door-opening drive failed: %s' % res)
 
 
 def phase_multi_main(torch, port):
@@ -1068,9 +1324,22 @@ def main():
     multi_res, _ = phase_multi_main(torch, port)
     phase_primitive_main(torch, port)
     ins_launches = phase_insertion_main(torch, port)['launches']
+    # the chest last: its kernels' larger stacks grow the runtime's
+    # per-thread local memory for every later launch
+    chest_k3 = phase_chest_k3(torch, port, kernels, count_lib)
+    chest_res = phase_chest_main(torch, port)
+    phase_chest_largest(torch, port, kernels)
+    phase_door_drive(torch, port)
+    # K3's share of a chest_push step (4 blocks) at 1024 envs
+    step_ms = 1e3 * CHEST_ENVS / chest_res[4]['env_steps_per_s']
+    emit('chest_step_breakdown', task='chest_push', blocks=4,
+         envs=CHEST_ENVS, step_ms=step_ms,
+         k3_call_ms=chest_k3['call_ms'],
+         k3_share=chest_k3['call_ms'] / step_ms,
+         card=card_line())
 
-    def insertion(r, launches):
-        """A kernel's figures on insertion's main path, for its row."""
+    def entry(r, launches):
+        """A kernel's figures on a further main path, for its row."""
         return dict(launches=launches, max_abs_err=r['max_abs_err'],
                     ms=r['ms'], plain_ms=r['plain_ms'],
                     bound_ms=r['bound_ms'], bound_by=r['bound_by'],
@@ -1085,7 +1354,7 @@ def main():
              launches=launches['ik'], max_abs_err=k1['max_abs_err'],
              ms=k1['ms'], plain_ms=k1['plain_ms'], bound_ms=k1['bound_ms'],
              bound_by=k1['bound_by'], library_ms=None,
-             insertion=insertion(k1['insertion'], ins_launches['ik'])),
+             insertion=entry(k1['insertion'], ins_launches['ik'])),
         dict(name='K2 fused control step (push, 100 substeps)', route='cuda',
              source='pybullet_multigoal_gym_tpu_torch/csrc/engine.cu',
              replaces='pybullet_multigoal_gym_tpu/ops/pallas_engine.py:497',
@@ -1105,8 +1374,8 @@ def main():
              max_abs_err=k3['max_abs_err'], ms=k3['ms'],
              plain_ms=k3['plain_ms'], bound_ms=k3['bound_ms'],
              bound_by=k3['bound_by'], library_ms=None,
-             insertion=insertion(mb_res['insertion'],
-                                 ins_launches['engine'])),
+             insertion=entry(mb_res['insertion'], ins_launches['engine']),
+             chest=entry(chest_k3, chest_res[4]['launches']['engine'])),
     ]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -3,13 +3,17 @@
 
 Replaces `pybullet_multigoal_gym_tpu/ops/pallas_multibody.py:_build_kernel`
 (launched through `PallasMultiBodyEngine.control_step`) for scenes of free
-and pinned bodies made of box geoms, with the parallel-jaw gripper:
-block_stack and block_rearrange with 1-5 blocks, the push-primitive tasks
-and insertion. Its plain version is
+and pinned bodies made of box geoms, static boxes and a prismatic door,
+with the parallel-jaw gripper: block_stack and block_rearrange with 1-5
+blocks, chest_push and chest_pick_and_place with 1-5 blocks, the
+push-primitive tasks and insertion. Its plain version is
 `ops/multibody_plain.py:control_step`: the wrapper runs that for tensors on
 the CPU and launches the kernel for tensors on a CUDA device, and raises for
 any other device. `D.multibody_consts` raises for the scenes later slices
-bring (static walls, the chest door, cylinders).
+bring (the revolving door, cylinders). Each chest task's scenes are a
+library of their own (`csrc/chest_push.cu`, `csrc/chest_pick.cu`), the
+others' `csrc/multibody.cu`: the three instantiate the template of
+`csrc/multibody.cuh` and build at once.
 
 One launch runs all ``n_substeps`` substeps with the state held on chip: the
 state is read once and written once, as (18 + 13 NB + 5, N) SoA rows in the
@@ -36,8 +40,8 @@ def n_rows(nb):
 
 
 def scene_params(sc: D.MultiBodyConsts):
-    """The kernel's parameter vector, in the order of `multibody.cu`'s
-    ``P_*``, ``B_*`` and ``G_*`` enums."""
+    """The kernel's parameter vector, in the order of `multibody.cuh`'s
+    ``P_*``, ``B_*``, ``G_*``, ``S_*`` and ``D_*`` enums."""
     prm = [sc.plane_z, sc.erp / D.DT_SUB, sc.slop, sc.mu_finger_plane,
            sc.mu_sphere_plane]
     for b in range(sc.nb):
@@ -46,21 +50,46 @@ def scene_params(sc: D.MultiBodyConsts):
     prm += [sc.mu_pair(b, b2) for b in range(sc.nb) for b2 in range(sc.nb)]
     for g in range(sc.ng):
         prm += list(sc.geom_half[g]) + list(sc.geom_pos[g])
+    for s in range(sc.ns):
+        prm += list(sc.static_half[s]) + list(sc.static_pos[s])
+        prm += [sc.mu_finger_static(s), sc.mu_sphere_static(s)]
+    prm += [sc.mu_static(b, s) for b in range(sc.nb) for s in range(sc.ns)]
+    if sc.nd:
+        prm += list(sc.door_anchor) + list(sc.door_axis)
+        prm += [sc.door_limit, sc.door_inv_mass,
+                500.0 * D.DT_SUB * sc.door_inv_mass, 1.0 - 2.0 * D.DT_SUB,
+                sc.mu_finger_door, sc.mu_sphere_door]
+        prm += [sc.mu_door(b) for b in range(sc.nb)]
+        for d in range(sc.nd):
+            prm += list(sc.door_half[d]) + list(sc.door_pos[d])
     return prm
 
 
 def scene_key(sc: D.MultiBodyConsts):
-    """The scene's structure as `multibody.cu` picks its kernel instance
-    (one of `MULTIBODY_SCENES`): bodies, geoms, each geom's body (4 bits a
-    geom), the plane mask, each geom's sphere mask (7 bits a geom), the
-    geoms off their body's origin (a bit each) and the pinned bodies (a bit
-    each)."""
+    """The scene's structure as `multibody.cuh` picks its kernel instance
+    (one of `MULTIBODY_SCENES` or `CHEST_SCENES`): bodies, geoms, each
+    geom's body (4 bits a geom), the plane mask, each geom's sphere mask (7
+    bits a geom), the geoms off their body's origin (a bit each), the pinned
+    bodies (a bit each), the static boxes, each static's sphere mask (7 bits
+    a static), the door's panels (0 without a door) and their sphere
+    mask."""
     return (sc.nb, sc.ng,
             sum(b << 4 * g for g, b in enumerate(sc.geom_body)),
             sc.plane_mask,
             sum(m << 7 * g for g, m in enumerate(sc.geom_mask)),
             sum(1 << g for g, p in enumerate(sc.geom_pos) if any(p)),
-            sum(1 << b for b, p in enumerate(sc.pinned) if p))
+            sum(1 << b for b, p in enumerate(sc.pinned) if p),
+            sc.ns, sum(m << 7 * s for s, m in enumerate(sc.static_mask)),
+            sc.nd, sc.door_mask)
+
+
+def library(sc: D.MultiBodyConsts):
+    """The kernel library that holds the scene's instance: 'multibody'
+    without a chest, else chest_push's (three walls, the front_sliding door
+    the fourth) or chest_pick_and_place's (four walls under the lid)."""
+    if not (sc.ns or sc.nd):
+        return 'multibody'
+    return {3: 'chest_push', 4: 'chest_pick'}[sc.ns]
 
 
 def pack(state: D.PhysicsState, controls: D.Controls):
@@ -144,11 +173,12 @@ class CudaMultiBodyEngine:
             prm = torch.tensor(scene_params(self.sc), dtype=torch.float32,
                                device=device)
             self._params[device] = prm
-        kern = _build.load('multibody')
+        lib = library(self.sc)
+        kern = _build.load(lib)
         stream = torch.cuda.current_stream(device).cuda_stream
         with torch.cuda.device(device):
             rc = kern.fn(*scene_key(self.sc), st.data_ptr(), ctl.data_ptr(),
                          prm.data_ptr(), out.data_ptr(), n, int(n_substeps),
                          self.sc.solver_iters, stream)
-        _build.check(rc, 'multibody')
+        _build.check(rc, lib)
         self.launches += 1

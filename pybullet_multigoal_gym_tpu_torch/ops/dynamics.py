@@ -5,8 +5,8 @@ Counterpart of the first part of `pybullet_multigoal_gym_tpu/ops/dynamics.py`
 and `Engine.init_state`), batched over a leading env axis. The physics itself
 is `ops/engine_plain.py` / `ops/multibody_plain.py` (plain PyTorch) and
 `ops/cuda_engine.py` / `ops/cuda_multibody.py` (the kernels) for scenes with
-at most one free body / several free and pinned bodies of box geoms. One
-control step =
+at most one free body / several free and pinned bodies of box geoms, static
+boxes and a prismatic door. One control step =
 ``n_substeps`` velocity-level substeps of ``DT_SUB`` seconds (5
 stepSimulation calls x 20 substeps = 100).
 """
@@ -115,11 +115,15 @@ def scene_consts(spec: S.SceneSpec, ik_workspace: bool = True) -> SceneConsts:
 @dataclasses.dataclass(frozen=True)
 class MultiBodyConsts:
     """Everything static that the control step of a scene of free and
-    pinned bodies made of box geoms needs (`pallas_multibody.py:262-299`),
-    per body in body order and per geom in geom order, in float32 where the
-    kernels read it. A pinned body (the insertion slot) has inverse mass and
-    inverse inertia 0: it gets no gravity, no plane lanes and no
-    integration, and every lane against it treats it as the world."""
+    pinned bodies made of box geoms, static boxes and a prismatic door needs
+    (`pallas_multibody.py:262-334`), per body in body order and per geom in
+    geom order, in float32 where the kernels read it. A pinned body (the
+    insertion slot) has inverse mass and inverse inertia 0: it gets no
+    gravity, no plane lanes and no integration, and every lane against it
+    treats it as the world. A static box (a chest wall) is the world at a
+    fixed centre with the identity rotation. The door (the chest's) is one
+    prismatic degree of freedom: its panels ride on the frame ``door_anchor
+    + door_axis * door_q`` with the identity rotation."""
     nb: int
     # the geom table: each geom's body, half extents and offset in the body
     # frame (its centre is the body position plus R offset)
@@ -135,9 +139,36 @@ class MultiBodyConsts:
     # against the plane, and against each geom
     plane_mask: int
     geom_mask: Tuple[int, ...]
+    # static boxes: half extents, world centres, frictions, and per static
+    # the arm spheres that keep a lane on it (bit sp)
+    static_half: Tuple[Tuple[float, float, float], ...] = ()
+    static_pos: Tuple[Tuple[float, float, float], ...] = ()
+    static_friction: Tuple[float, ...] = ()
+    static_mask: Tuple[int, ...] = ()
+    # the door: its kind (S.DOOR_NONE or S.DOOR_PRISMATIC), its joint frame's
+    # world anchor and axis, its limit and inverse mass, its panels' half
+    # extents and offsets in the joint frame, the arm spheres that keep a
+    # lane on each panel (bit sp)
+    door_kind: int = 0
+    door_anchor: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    door_axis: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    door_limit: float = 0.0
+    door_inv_mass: float = 0.0
+    door_half: Tuple[Tuple[float, float, float], ...] = ()
+    door_pos: Tuple[Tuple[float, float, float], ...] = ()
+    door_mask: int = 0
     solver_iters: int = 8
     erp: float = 0.2
     slop: float = 5e-4
+
+    @property
+    def ns(self):
+        return len(self.static_half)
+
+    @property
+    def nd(self):
+        """The door's panels (0 without a door)."""
+        return len(self.door_half)
 
     @property
     def ng(self):
@@ -195,6 +226,36 @@ class MultiBodyConsts:
     def mu_sphere_plane(self):
         return 0.5 * self.plane_friction
 
+    def mu_static(self, b, s):
+        return self.body_friction[b] * self.static_friction[s]
+
+    def mu_door(self, b):
+        return self.body_friction[b] * 0.5
+
+    mu_finger_door = 1.0
+    mu_sphere_door = 0.5
+
+    def mu_finger_static(self, s):
+        return 1.0 * self.static_friction[s]
+
+    def mu_sphere_static(self, s):
+        return 0.5 * self.static_friction[s]
+
+    # the door's frame (JAX `dynamics.py:385-403`, `pallas_multibody.py:
+    # 317-334`), prismatic: it slides along its axis and does not turn
+    def door_frame(self, door_q):
+        """The door joint frame's world position (N, 3) and orientation (N,
+        4, wxyz) at joint values ``door_q`` (N,)."""
+        pos = (const(self.door_anchor, door_q)
+               + const(self.door_axis, door_q) * door_q[:, None])
+        rot = const([1.0, 0.0, 0.0, 0.0], door_q).expand(door_q.shape[0], 4)
+        return pos, rot
+
+    def door_point_jac(self, p, door_q):
+        """The velocity of door points ``p`` (..., 3) per unit door_qd: the
+        axis, wherever the point is."""
+        return const(self.door_axis, p).expand(p.shape)
+
 
 def multibody_consts(spec: S.SceneSpec, ik_workspace: bool = True
                      ) -> MultiBodyConsts:
@@ -205,17 +266,45 @@ def multibody_consts(spec: S.SceneSpec, ik_workspace: bool = True
     arm-sphere lane. A body of mass <= 0 is pinned: inverse mass and
     inverse inertia 0. A free body's inertia is that of its geom at the
     body origin alone, or a 1e-3 diagonal where it has none (the
-    reference's convention, `pallas_multibody.py:273-281`). Raises
-    `NotImplementedError` for what later slices of the port bring: static
-    boxes, the chest door and cylinders."""
+    reference's convention, `pallas_multibody.py:273-281`). The chest's
+    walls are static boxes and its sliding door a prismatic door
+    (`pallas_multibody.py:301-309`). Raises `NotImplementedError` for what
+    later slices of the port bring: the revolving door and cylinders."""
     later = 'come with a later slice of the port'
-    if spec.ns_static or spec.door is not None:
-        raise NotImplementedError('the chest (static walls and the door) '
-                                  + later)
+    if spec.door is not None and spec.door.kind != S.DOOR_PRISMATIC:
+        raise NotImplementedError('the revolving chest door ' + later)
     a = spec.np_arrays()
     if (a['geom_type'] != S.BOX).any():
         raise NotImplementedError('cylinder bodies ' + later)
     reach = LC.arm_lane_mask(spec, ik_workspace)
+
+    def mask(keep):
+        return sum(1 << sp for sp in range(N_ARM_SPHERES) if keep[sp])
+
+    def rows(x):
+        return tuple(tuple(float(v) for v in r) for r in x)
+    chest = {}
+    if spec.ns_static:
+        chest.update(
+            static_half=rows(a['static_half']),
+            static_pos=rows(a['static_pos']),
+            static_friction=tuple(float(f) for f in a['static_friction']),
+            static_mask=tuple(mask([reach['static'][sp][s]
+                                    for sp in range(N_ARM_SPHERES)])
+                              for s in range(spec.ns_static)))
+    door = spec.door
+    if door is not None:
+        chest.update(
+            door_kind=S.DOOR_PRISMATIC,
+            door_anchor=tuple(float(x) for x in
+                              np.asarray(spec.chest_base, np.float64)
+                              + np.asarray(door.anchor, np.float64)),
+            door_axis=tuple(float(x) for x in door.axis),
+            door_limit=float(door.limit),
+            door_inv_mass=1.0 / max(door.mass, 0.25),
+            door_half=rows(np.asarray(door.geom_half).reshape(-1, 3)),
+            door_pos=rows(np.asarray(door.geom_pos).reshape(-1, 3)),
+            door_mask=mask(reach['door']))
     ng = len(a['geom_body'])
     inv_inertia = []
     for b in range(spec.n_bodies):
@@ -243,7 +332,8 @@ def multibody_consts(spec: S.SceneSpec, ik_workspace: bool = True
         plane_mask=sum(1 << sp for sp in range(N_ARM_SPHERES)
                        if reach['plane'][sp]),
         geom_mask=tuple(sum(1 << sp for sp in range(N_ARM_SPHERES)
-                            if reach['geom'][sp][g]) for g in range(ng)))
+                            if reach['geom'][sp][g]) for g in range(ng)),
+        **chest)
 
 
 def init_state(n, nb=1, q=None, body_pos=None, body_quat=None,

@@ -3,25 +3,34 @@ several free bodies.
 
 Counterpart of `pybullet_multigoal_gym_tpu/ops/pallas_multibody.py`
 (`_build_kernel`'s ``substep``, `:336-852`) for scenes of free and pinned
-bodies made of box geoms of any size, with the parallel-jaw gripper
-(block_stack, block_rearrange, the push primitives and insertion), written
-over a leading env axis: bodies stack on axis 1 of the state, and contact
-lanes on axis 1 of the lane tensors. The lane order, the lane frictions and
-the side metadata are those of the Pallas kernel: per free body, per geom
-of it, the plane (4), the two fingers (2 x 9), then per geom of a pinned
-body a one-sided manifold (5) and the edge-edge candidate; then per geom of
-a pinned body the two fingers (2 x 9); then per pair of free bodies, per
-pair of their geoms, 9 + the edge-edge candidate; then the finger pads on
-the plane (2 x 4); then the arm-sphere lanes that `ops/lane_cull.py` keeps
-(per sphere, the plane, then each geom it reaches). Every lane of a geom
-acts on its body: the solve, the mass splitting and the coupling are per
-body. A lane's sides are ('body', b), ('pinned', b), ('finger', f), ('arm',
-sphere) or ('world',); its arm link, arm sign, arm coupling and EE-sensor
-sign follow from them (`pallas_multibody.py:68-107`). A pinned side acts as
+bodies made of box geoms of any size, static boxes and a prismatic door,
+with the parallel-jaw gripper (block_stack, block_rearrange, the chest
+tasks, the push primitives and insertion), written over a leading env axis:
+bodies stack on axis 1 of the state, and contact lanes on axis 1 of the
+lane tensors. The lane order, the lane frictions and the side metadata are
+those of the Pallas kernel (`:398-517`): per free body, per geom of it, the
+plane (4), the two fingers (2 x 9), then per static box, per geom of a
+pinned body and per door panel a one-sided manifold (5) and the edge-edge
+candidate; then per geom of a pinned body the two fingers (2 x 9); then per
+pair of free bodies, per pair of their geoms, 9 + the edge-edge candidate;
+then per finger, per door panel, a two-sided manifold (9) with the door as
+side A; then per finger its pad on the plane (4) and against each static
+box (one-sided, 5); then the arm-sphere lanes that `ops/lane_cull.py` keeps
+(per sphere, the plane, then each geom, static box and door panel it
+reaches). Every lane of a geom acts on its body: the solve, the mass
+splitting and the coupling are per body. A lane's sides are ('body', b),
+('pinned', b), ('static', s), ('door',), ('finger', f), ('arm', sphere) or
+('world',); its arm link, arm sign, arm coupling and EE-sensor sign follow
+from them (`pallas_multibody.py:68-107`). A pinned or static side acts as
 the world does (no velocity, no share of an impulse), where the Pallas
 kernel names it ('pinned',) on side A and ('world',) on side B; its own
 name keeps its lanes' groups apart. A pinned body gets no gravity and no
-integration: its pose and velocities pass through.
+integration: its pose and velocities pass through. The door is a side with
+one degree of freedom: its point velocity is ``door_axis * door_qd``, its
+share of a lane's effective mass ``(d . axis)^2 / m_door`` times its count of
+active lanes, and it takes its lanes' impulses along its axis; before the
+contacts a servo drives it toward its hold-open target (or it coasts), and
+it integrates clamped to [0, limit].
 
 The CPU path and the tests run this module; on the card
 `ops/cuda_multibody.py` launches `csrc/multibody.cu` instead, and the chip
@@ -67,9 +76,9 @@ def arm_sgn(sa, sb):
 
 def couple(sa, sb):
     """1 where the arm yields in the solve: arm spheres and finger-vs-world
-    lanes."""
+    lanes (the plane, a static box)."""
     return 1.0 if sa[0] == 'arm' or (sa[0] == 'finger' and
-                                     sb == ('world',)) else 0.0
+                                     sb[0] in ('world', 'static')) else 0.0
 
 
 def ee_sgn(sa, sb):
@@ -86,13 +95,15 @@ def lane_group(spec: LaneSpec):
     ka, kb = spec.side_a[0], spec.side_b[0]
     if ka == 'body':
         return {'world': 'box-plane', 'finger': 'finger-box',
-                'body': 'box-box', 'pinned': 'box-pinned'}[kb]
-    if ka == 'pinned':
-        return 'finger-pinned'
+                'body': 'box-box', 'pinned': 'box-pinned',
+                'static': 'box-static', 'door': 'box-door'}[kb]
+    if ka in ('pinned', 'door'):
+        return 'finger-' + ka
     if ka == 'finger':
-        return 'finger-plane'
+        return 'finger-static' if kb == 'static' else 'finger-plane'
     return {'world': 'sphere-plane', 'body': 'sphere-box',
-            'pinned': 'sphere-pinned'}[kb]
+            'pinned': 'sphere-pinned', 'static': 'sphere-static',
+            'door': 'sphere-door'}[kb]
 
 
 def _body_side(sc: D.MultiBodyConsts, b):
@@ -100,13 +111,18 @@ def _body_side(sc: D.MultiBodyConsts, b):
 
 
 def _sphere_lanes(sc: D.MultiBodyConsts):
-    """The kept arm-sphere lanes in the kernel's order, as (sphere, geom)
-    with geom -1 for the plane."""
+    """The kept arm-sphere lanes in the kernel's order, as (sphere, kind,
+    item): ('plane', -1), ('geom', g), ('static', s), ('door', panel)."""
     out = []
     for sp in range(D.N_ARM_SPHERES):
         if sc.plane_mask >> sp & 1:
-            out.append((sp, -1))
-        out += [(sp, g) for g in sc.geom_order if sc.geom_mask[g] >> sp & 1]
+            out.append((sp, 'plane', -1))
+        out += [(sp, 'geom', g) for g in sc.geom_order
+                if sc.geom_mask[g] >> sp & 1]
+        out += [(sp, 'static', s) for s in range(sc.ns)
+                if sc.static_mask[s] >> sp & 1]
+        if sc.door_mask >> sp & 1:
+            out += [(sp, 'door', d) for d in range(sc.nd)]
     return out
 
 
@@ -118,9 +134,13 @@ def lane_plan(sc: D.MultiBodyConsts):
         plan += [LaneSpec(sc.mu_plane(b), ('body', b), ('world',))] * 4
         for f in range(2):
             plan += [LaneSpec(sc.mu_finger(b), ('body', b), ('finger', f))] * 9
+        for s in range(sc.ns):
+            plan += [LaneSpec(sc.mu_static(b, s), ('body', b),
+                              ('static', s))] * 6
         for g2 in sc.pinned_geoms:
             plan += [LaneSpec(sc.mu_pair(b, gb[g2]), ('body', b),
                               ('pinned', gb[g2]))] * 6
+        plan += [LaneSpec(sc.mu_door(b), ('body', b), ('door',))] * 6 * sc.nd
     for g2 in sc.pinned_geoms:
         for f in range(2):
             plan += [LaneSpec(sc.mu_finger(gb[g2]), ('pinned', gb[g2]),
@@ -129,12 +149,24 @@ def lane_plan(sc: D.MultiBodyConsts):
         b, b2 = gb[g], gb[g2]
         plan += [LaneSpec(sc.mu_pair(b, b2), ('body', b), ('body', b2))] * 10
     for f in range(2):
+        plan += [LaneSpec(sc.mu_finger_door, ('door',), ('finger', f))] * (
+            9 * sc.nd)
+    for f in range(2):
         plan += [LaneSpec(sc.mu_finger_plane, ('finger', f), ('world',))] * 4
-    for sp, g in _sphere_lanes(sc):
-        plan.append(LaneSpec(sc.mu_sphere_plane, ('arm', sp), ('world',))
-                    if g < 0 else
-                    LaneSpec(sc.mu_sphere(gb[g]), ('arm', sp),
-                             _body_side(sc, gb[g])))
+        for s in range(sc.ns):
+            plan += [LaneSpec(sc.mu_finger_static(s), ('finger', f),
+                              ('static', s))] * 5
+    for sp, kind, k in _sphere_lanes(sc):
+        if kind == 'plane':
+            plan.append(LaneSpec(sc.mu_sphere_plane, ('arm', sp), ('world',)))
+        elif kind == 'geom':
+            plan.append(LaneSpec(sc.mu_sphere(gb[k]), ('arm', sp),
+                                 _body_side(sc, gb[k])))
+        elif kind == 'static':
+            plan.append(LaneSpec(sc.mu_sphere_static(k), ('arm', sp),
+                                 ('static', k)))
+        else:
+            plan.append(LaneSpec(sc.mu_sphere_door, ('arm', sp), ('door',)))
     return plan
 
 
@@ -151,15 +183,25 @@ def _stack(lanes, rows):
 @functools.lru_cache(maxsize=None)
 def _plan_positions(sc: D.MultiBodyConsts):
     """Where each item's lanes start in `lane_plan`: ('geom', g) (a free
-    geom's plane and fingers), ('pinned', g, g2) (free geom g against
-    pinned geom g2), ('fingers', g2) (pinned geom g2 against the fingers),
-    ('pair', (g, g2)), 'pads', ('plane', sp) and ('sphere', sp, g)."""
+    geom's plane and fingers), ('static', g, s), ('pinned', g, g2) and
+    ('door', g, d) (free geom g against static s, pinned geom g2, door panel
+    d), ('fingers', g2) (pinned geom g2 against the fingers), ('pair', (g,
+    g2)), ('fdoor', f, d) (finger f against door panel d), ('pad', f) and
+    ('fstatic', f, s) (finger f's pad on the plane, against static s), and
+    per sphere sp ('plane', sp), ('sphere', sp, g), ('sstatic', sp, s) and
+    ('sdoor', sp, d)."""
     pos, at = {}, 0
     for g in sc.free_geoms:
         pos['geom', g] = at
         at += 22
+        for s in range(sc.ns):
+            pos['static', g, s] = at
+            at += 6
         for g2 in sc.pinned_geoms:
             pos['pinned', g, g2] = at
+            at += 6
+        for d in range(sc.nd):
+            pos['door', g, d] = at
             at += 6
     for g2 in sc.pinned_geoms:
         pos['fingers', g2] = at
@@ -167,10 +209,19 @@ def _plan_positions(sc: D.MultiBodyConsts):
     for p in sc.geom_pairs:
         pos['pair', p] = at
         at += 10
-    pos['pads'] = at
-    at += 8
-    for sp, g in _sphere_lanes(sc):
-        pos[('plane', sp) if g < 0 else ('sphere', sp, g)] = at
+    for f in range(2):
+        for d in range(sc.nd):
+            pos['fdoor', f, d] = at
+            at += 9
+    for f in range(2):
+        pos['pad', f] = at
+        at += 4
+        for s in range(sc.ns):
+            pos['fstatic', f, s] = at
+            at += 5
+    names = dict(plane='plane', geom='sphere', static='sstatic', door='sdoor')
+    for sp, kind, k in _sphere_lanes(sc):
+        pos[(names[kind], sp) + ((k,) if kind != 'plane' else ())] = at
         at += 1
     return pos
 
@@ -183,15 +234,17 @@ def _by_size(items, size):
     return groups.items()
 
 
-def build_lanes(sc: D.MultiBodyConsts, ch, bp, bq, R):
+def build_lanes(sc: D.MultiBodyConsts, ch, bp, bq, R, door_q=None):
     """All contact lanes of one substep in the kernel's order (`lane_plan`),
     as (N, L, 3) points and normals and (N, L) penetrations and 0/1
     activations. ``bp`` (N, NB, 3), ``bq`` (N, NB, 4) and ``R`` (N, NB, 3,
-    3) are the bodies' positions, orientations and rotation matrices. A
+    3) are the bodies' positions, orientations and rotation matrices, and
+    ``door_q`` (N,) the door's joint value (a scene with a door needs it). A
     geom's centre is its body's position plus R times its offset
-    (`pallas_multibody.py:393-397`). The lanes of one kind are computed for
-    all geoms, geom pairs, fingers or sphere-geom pairs of one size at once,
-    then put in plan order."""
+    (`pallas_multibody.py:393-397`); a door panel's the door frame's
+    position plus its offset (`:384-387`). The lanes of one kind are
+    computed for all geoms, geom pairs, fingers or sphere-geom pairs of one
+    size at once, then put in plan order."""
     N = bp.shape[0]
     fhalf = EP.FINGER_HALF
     fpos, r7 = ch['fpos'], ch['r7']
@@ -231,8 +284,34 @@ def build_lanes(sc: D.MultiBodyConsts, ch, bp, bq, R):
             rep(c, 2), rep(Rg, 2), h, flat(rep(fpos, k)),
             rep(rep(Rb7, k), 2), fhalf, 0.0), N * k)
 
+    # the world boxes: static s and door panel d, each (N, 3) centres with
+    # the identity rotation
+    eye = const(np.eye(3), bp)
+    world = {('static', s): const(sc.static_pos[s], bp).expand(N, 3)
+             for s in range(sc.ns)}
+    if sc.nd:
+        dpos = sc.door_frame(door_q)[0]
+        world.update({('door', d): dpos + const(sc.door_pos[d], bp)
+                      for d in range(sc.nd)})
+    whalf = {('static', s): sc.static_half[s] for s in range(sc.ns)}
+    whalf.update({('door', d): sc.door_half[d] for d in range(sc.nd)})
+
+    def boxes(sel):
+        """Centres of world boxes ``sel``, (N, len(sel), 3)."""
+        return torch.stack([world[w] for w in sel], 1)
+
+    def cross_items(a, b):
+        """Rows (N, k, ...) and (N, m, ...) -> every (k, m) pair, (N x k x
+        m, ...), env-major, then a's items, then b's."""
+        k, m = a.shape[1], b.shape[1]
+        return (a[:, :, None].expand((N, k, m) + a.shape[2:])
+                .reshape((-1,) + a.shape[2:]),
+                b[:, None].expand((N, k, m) + b.shape[2:])
+                .reshape((-1,) + b.shape[2:]))
+
     # per free geom: the plane (4), then finger 0 and finger 1 (9 each),
-    # then each pinned geom (one-sided 5 and the edge lane)
+    # then each static box, pinned geom and door panel (one-sided 5 and the
+    # edge lane)
     for h, sel in _by_size(sc.free_geoms, lambda g: half[g]):
         c, Rg, q = geoms(sel)
         k = len(sel)
@@ -246,6 +325,16 @@ def build_lanes(sc: D.MultiBodyConsts, ch, bp, bq, R):
             add(_stack(EP.sat_box_box_lanes(*args, one_sided=True)
                        + EP.edge_lane(*args), N * k),
                 [pos['pinned', g, g2] + j for g in sel for j in range(6)])
+        # the world boxes of one size at once: geom-major, box-minor
+        for hw, ws in _by_size(list(whalf), whalf.__getitem__):
+            m = len(ws)
+            ca, cb = cross_items(c.reshape(N, k, 3), boxes(ws))
+            Ra = cross_items(Rg.reshape(N, k, 3, 3), boxes(ws))[0]
+            args = (ca, Ra, h, cb, eye.expand(N * k * m, 3, 3), hw, 0.0)
+            add(_stack(EP.sat_box_box_lanes(*args, one_sided=True)
+                       + EP.edge_lane(*args), N * k * m),
+                [pos[w[:1] + (g,) + w[1:]] + j for g in sel for w in ws
+                 for j in range(6)])
     # per pinned geom: finger 0 and finger 1 (9 each), the geom as side A
     for h, sel in _by_size(sc.pinned_geoms, lambda g: half[g]):
         c, Rg, _ = geoms(sel)
@@ -260,9 +349,31 @@ def build_lanes(sc: D.MultiBodyConsts, ch, bp, bq, R):
         add(_stack(EP.sat_box_box_lanes(*args) + EP.edge_lane(*args),
                    N * len(sel)),
             [pos['pair', p] + j for p in sel for j in range(10)])
+    # per finger, per door panel: the two-sided manifold, the panel as side
+    # A (the panels of one size at once, finger-major)
+    rot7 = Rb7[:, None].expand(N, 2, 3, 3)
+    for hw, ws in _by_size([w for w in whalf if w[0] == 'door'],
+                           whalf.__getitem__):
+        m = len(ws)
+        pf, cb = cross_items(fpos, boxes(ws))
+        add(_stack(EP.sat_box_box_lanes(
+            cb, eye.expand(N * 2 * m, 3, 3), hw, pf,
+            cross_items(rot7, boxes(ws))[0], fhalf, 0.0), N * 2 * m),
+            [pos['fdoor', f, w[1]] + j for f in range(2) for w in ws
+             for j in range(9)])
     add(_stack(EP.box_plane_lanes(flat(fpos), rep(r7, 2), fhalf, sc.plane_z,
                                   0.0), N),
-        range(pos['pads'], pos['pads'] + 8))
+        [pos['pad', f] + j for f in range(2) for j in range(4)])
+    # per finger, per static box: the pad's one-sided manifold (5)
+    for hw, ws in _by_size([w for w in whalf if w[0] == 'static'],
+                           whalf.__getitem__):
+        m = len(ws)
+        pf, cb = cross_items(fpos, boxes(ws))
+        add(_stack(EP.sat_box_box_lanes(
+            pf, cross_items(rot7, boxes(ws))[0], fhalf, cb,
+            eye.expand(N * 2 * m, 3, 3), hw, 0.0, one_sided=True), N * 2 * m),
+            [pos['fstatic', f, w[1]] + j for f in range(2) for w in ws
+             for j in range(5)])
     radius = [float(np.float32(r)) for r in KM.ARM_SPHERE_RADIUS]
     spheres = ch['spheres']
     for sp in range(D.N_ARM_SPHERES):
@@ -271,8 +382,8 @@ def build_lanes(sc: D.MultiBodyConsts, ch, bp, bq, R):
                                             sc.plane_z, 0.0), N),
                 [pos['plane', sp]])
     # every kept sphere-geom pair of one geom size at once
-    for h, sel in _by_size([(sp, g) for sp, g in _sphere_lanes(sc) if g >= 0],
-                           lambda p: half[p[1]]):
+    for h, sel in _by_size([(sp, k) for sp, kind, k in _sphere_lanes(sc)
+                            if kind == 'geom'], lambda p: half[p[1]]):
         sps = [sp for sp, _ in sel]
         cg, Rg, _ = geoms([g for _, g in sel])
         r = const([radius[sp] for sp in sps], cg)
@@ -280,6 +391,17 @@ def build_lanes(sc: D.MultiBodyConsts, ch, bp, bq, R):
                                       r.expand(N, len(sel)).reshape(-1),
                                       cg, Rg, h, 0.0), N * len(sel)),
             [pos['sphere', sp, g] for sp, g in sel])
+    # and every kept sphere-world box pair of one box size
+    for hw, sel in _by_size([(sp, (kind, k)) for sp, kind, k in
+                             _sphere_lanes(sc) if kind in ('static', 'door')],
+                            lambda p: whalf[p[1]]):
+        sps = [sp for sp, _ in sel]
+        r = const([radius[sp] for sp in sps], bp)
+        add(_stack(EP.sphere_box_lane(
+            flat(spheres[:, sps]), r.expand(N, len(sel)).reshape(-1),
+            flat(boxes([w for _, w in sel])),
+            eye.expand(N * len(sel), 3, 3), hw, 0.0), N * len(sel)),
+            [pos['s' + w[0], sp, w[1]] for sp, w in sel])
     out = [torch.cat([b[f] for b in blocks], 1) for f in range(4)]
     if order == sorted(order):
         return out
@@ -340,6 +462,11 @@ def lane_meta(sc: D.MultiBodyConsts, like):
         # per finger f: +1 where side A is f, -1 where side B is f
         fin_sgn=t([[1.0 if fa == f else (-1.0 if fb == f else 0.0)
                     for f in range(2)] for fa, fb in zip(fin_a, fin_b)]),
+        # the door: +1 where it is side A, -1 where side B
+        door_a=t([sa == ('door',) for sa, _ in sides], torch.bool),
+        door_b=t([sb == ('door',) for _, sb in sides], torch.bool),
+        door_sgn=t([1.0 if sa == ('door',) else
+                    (-1.0 if sb == ('door',) else 0.0) for sa, sb in sides]),
         fin_any=t([[1.0 if f in (fa, fb) else 0.0 for f in range(2)]
                    for fa, fb in zip(fin_a, fin_b)]),
         cpl=t(cpl), cpl_on=t([c > 0 for c in cpl], torch.bool),
@@ -360,14 +487,16 @@ def _mat3vec(R, v):
                         for i in range(3)], -1)
 
 
-def substep(sc: D.MultiBodyConsts, carry, qt, ft):
+def substep(sc: D.MultiBodyConsts, carry, qt, ft, door_on=None,
+            door_tgt=None):
     """One velocity-level 2 ms substep (`pallas_multibody.py:336-852`):
     servos and gravity propose velocities, contacts generated at the CURRENT
     coordinates correct them (with frozen-arm joint coupling), then all
     coordinates integrate together. ``carry`` holds q, qd, fq, fqd and the
-    bodies' (N, NB, k) pos, quat, linvel and angvel. Returns (carry,
-    ee_force)."""
-    q, qd, fq, fqd, bp, bq, bv, bw = carry
+    bodies' (N, NB, k) pos, quat, linvel and angvel, and in a scene with a
+    door its (N,) door_q and door_qd, servoed by the (N,) controls
+    ``door_on`` and ``door_tgt``. Returns (carry, ee_force)."""
+    q, qd, fq, fqd, bp, bq, bv, bw = carry[:8]
     dt = D.DT_SUB
 
     # 1. arm servo -> proposed qd (q integrates after the solve)
@@ -395,10 +524,23 @@ def substep(sc: D.MultiBodyConsts, carry, qt, ft):
         bv = torch.where(pinned, bv0, bv)
     R = qmat(bq)                                            # (N, NB, 3, 3)
 
-    # 5. contacts
-    pts, nrm, pen, act = build_lanes(sc, ch, bp, bq, R)     # (N, L, ...)
+    # 5. the door: servo toward the hold-open target where its motor is on,
+    # else a free coast
+    door = sc.nd > 0
+    if door:
+        door_q, door_qd = carry[8:]
+        dv_des = torch.clamp(D.ARM_SERVO_RATE * (door_tgt - door_q), -1.0, 1.0)
+        ddv = 500.0 * dt * sc.door_inv_mass
+        door_qd = torch.where(
+            door_on > 0, door_qd + torch.clamp(dv_des - door_qd, -ddv, ddv),
+            door_qd * (1.0 - 2.0 * dt))
+        axis = const(sc.door_axis, q)
 
-    # 6. solve (fused Jacobi with mass splitting)
+    # 6. contacts
+    pts, nrm, pen, act = build_lanes(sc, ch, bp, bq, R,
+                                     door_q if door else None)  # (N, L, ...)
+
+    # 7. solve (fused Jacobi with mass splitting)
     ii = m['inv_inertia']
     Iw = torch.stack([torch.stack([
         sum(R[..., i, j] * ii[:, j] * R[..., k, j] for j in range(3))
@@ -418,6 +560,8 @@ def substep(sc: D.MultiBodyConsts, carry, qt, ft):
     counts = (act[..., None] * m['body_in']).sum(1).clamp_min(1.0)  # (N, NB)
     fin_counts = (act[..., None] * m['fin_any']).sum(1).clamp_min(1.0)
     arm_count = (act * m['cpl']).sum(1).clamp_min(1.0)
+    if door:
+        door_count = (act * m['door_sgn'].abs()).sum(1).clamp_min(1.0)
     fin = m['fin']
     lane_axis = faxis[:, fin]                                # (N, L, 3)
     lane_fin_count = fin_counts[:, fin]
@@ -440,11 +584,17 @@ def substep(sc: D.MultiBodyConsts, carry, qt, ft):
         (J_j . d = z_j . ((p - o_j) x d))."""
         da = (d * lane_axis[:, :, None]).sum(-1)
         k_fin = (da * da / FINGER_MASS) * lane_fin_count[..., None]
+        k_a = k_b = 0.0
+        if door:
+            dj = vdot(d, axis)
+            k_door = (dj * dj * sc.door_inv_mass) * door_count[:, None, None]
+            k_a = torch.where(m['door_a'][:, None], k_door, 0.0)
+            k_b = torch.where(m['door_b'][:, None], k_door, 0.0)
         k = torch.where(m['has_a'][:, None], body_k(r_a, ia, d),
-                        torch.where(m['fin_a'][:, None], k_fin, 0.0))
+                        torch.where(m['fin_a'][:, None], k_fin, k_a))
         k = k + torch.where(m['fin_b'][:, None], k_fin,
                             torch.where(m['has_b'][:, None],
-                                        body_k(r_b, ib, d), 0.0))
+                                        body_k(r_b, ib, d), k_b))
         ka = 0.0
         for j in range(7):
             jd = (vcross((pts - o[:, j, None])[:, :, None], d)
@@ -464,24 +614,30 @@ def substep(sc: D.MultiBodyConsts, carry, qt, ft):
                             D.BIAS_CAP)
     mu = m['mu']
 
-    def point_vel(bv_, bw_, fqd_):
+    def point_vel(bv_, bw_, fqd_, door_qd_):
         """Relative velocity va - vb of each lane's two sides."""
         v_fin = v_arm + lane_axis * fqd_[:, fin, None]
+        v_a = v_b = 0.0
+        if door:
+            v_door = axis * door_qd_[:, None, None]
+            v_a = torch.where(m['door_a'][:, None], v_door, 0.0)
+            v_b = torch.where(m['door_b'][:, None], v_door, 0.0)
         va = torch.where(has_a, bv_[:, ia] + vcross(bw_[:, ia], r_a),
                          torch.where(m['fin_a'][:, None], v_fin,
                                      torch.where(m['arm_a'][:, None], v_arm,
-                                                 0.0)))
+                                                 v_a)))
         vb = torch.where(m['fin_b'][:, None], v_fin,
                          torch.where(has_b, bv_[:, ib] + vcross(bw_[:, ib], r_b),
-                                     0.0))
+                                     v_b))
         return va - vb
 
     on_a, on_b = m['on_a'][None, :, :, None], m['on_b'][None, :, :, None]
     inv_mass = m['inv_mass'][None, :, None]
     bv_, bw_, fqd_ = bv, bw, fqd
+    door_qd_ = door_qd if door else None
     ln = lt1 = lt2 = torch.zeros_like(pen)
     for _ in range(sc.solver_iters):
-        vrel = point_vel(bv_, bw_, fqd_)
+        vrel = point_vel(bv_, bw_, fqd_, door_qd_)
         dln = torch.where(solve_on, -(vdot(vrel, nrm) + bias) / kn, 0.0)
         nln = (ln + dln).clamp_min(0.0)
         dln = nln - ln
@@ -503,6 +659,10 @@ def substep(sc: D.MultiBodyConsts, carry, qt, ft):
         dfq = torch.stack([(vdot(imp, faxis[:, f, None]) * m['fin_sgn'][:, f]
                             ).sum(1) for f in range(2)], -1)
         fqd_ = fqd_ + dfq / FINGER_MASS
+        if door:
+            # side A gains the impulse along the axis, side B loses it
+            ddoor = (vdot(imp, axis) * m['door_sgn']).sum(1)
+            door_qd_ = door_qd_ + ddoor * sc.door_inv_mass
         ln, lt1, lt2 = nln, nlt1, nlt2
 
     tot_imp = nrm * ln[..., None] + t1 * lt1[..., None] + t2 * lt2[..., None]
@@ -521,7 +681,7 @@ def substep(sc: D.MultiBodyConsts, carry, qt, ft):
     # EE force sensor: impulse applied onto the gripper / dt
     ee_force = (tot_imp * m['ee_sgn'][:, None]).sum(1) / dt
 
-    # 7. integrate; joints at a hard stop lose the velocity into the stop
+    # 8. integrate; joints at a hard stop lose the velocity into the stop
     lo, hi = const(EP._JL_LO, q), const(EP._JL_HI, q)
     q = torch.clamp(q + qd * dt, lo, hi)
     qd = torch.where((q >= hi) & (qd > 0), 0.0,
@@ -542,7 +702,34 @@ def substep(sc: D.MultiBodyConsts, carry, qt, ft):
     fq = torch.clamp(fq + fqd_ * dt, EP._FQ_LO, EP._FQ_HI)
     fqd_ = torch.where((fq >= EP._FQ_HI) & (fqd_ > 0), 0.0,
                        torch.where((fq <= EP._FQ_LO) & (fqd_ < 0), 0.0, fqd_))
-    return (q, qd, fq, fqd_, bp, bq, bv_, bw_), ee_force
+    out = (q, qd, fq, fqd_, bp, bq, bv_, bw_)
+    if door:
+        # clamped to [0, limit]; the velocity into a stop is lost
+        lim = sc.door_limit
+        door_q = torch.clamp(door_q + door_qd_ * dt, 0.0, lim)
+        door_qd_ = torch.where((door_q >= lim) & (door_qd_ > 0), 0.0,
+                               torch.where((door_q <= 0.0) & (door_qd_ < 0),
+                                           0.0, door_qd_))
+        out += (door_q, door_qd_)
+    return out, ee_force
+
+
+def carry_of(sc: D.MultiBodyConsts, state: D.PhysicsState):
+    """`substep`'s carry of ``state``: the door's two values only in a
+    scene with a door."""
+    carry = (state.q, state.qd, state.fq, state.fqd, state.body_pos,
+             state.body_quat, state.body_linvel, state.body_angvel)
+    return carry + ((state.door_q, state.door_qd) if sc.nd else ())
+
+
+def state_of(state: D.PhysicsState, carry, ee) -> D.PhysicsState:
+    """``state`` after `substep`s that ended in ``carry`` and ``ee``."""
+    q, qd, fq, fqd, bp, bq, bv, bw = carry[:8]
+    door = carry[8:] or (state.door_q, state.door_qd)
+    return D.PhysicsState(
+        q=q, qd=qd, fq=fq, fqd=fqd, body_pos=bp, body_quat=bq,
+        body_linvel=bv, body_angvel=bw, door_q=door[0], door_qd=door[1],
+        ee_contact_force=ee)
 
 
 def control_step(sc: D.MultiBodyConsts, state: D.PhysicsState,
@@ -550,14 +737,11 @@ def control_step(sc: D.MultiBodyConsts, state: D.PhysicsState,
                  n_substeps: int = D.SIM_CALLS_PER_STEP * D.SUBSTEPS_PER_SIM
                  ) -> D.PhysicsState:
     """``n_substeps`` substeps on a batch
-    (`PallasMultiBodyEngine.control_step`); the door passes through."""
-    carry = (state.q, state.qd, state.fq, state.fqd, state.body_pos,
-             state.body_quat, state.body_linvel, state.body_angvel)
+    (`PallasMultiBodyEngine.control_step`); without a door, its state passes
+    through."""
+    carry = carry_of(sc, state)
     ee = torch.zeros_like(state.ee_contact_force)
     for _ in range(n_substeps):
-        carry, ee = substep(sc, carry, controls.q_target, controls.f_target)
-    q, qd, fq, fqd, bp, bq, bv, bw = carry
-    return D.PhysicsState(
-        q=q, qd=qd, fq=fq, fqd=fqd, body_pos=bp, body_quat=bq,
-        body_linvel=bv, body_angvel=bw, door_q=state.door_q,
-        door_qd=state.door_qd, ee_contact_force=ee)
+        carry, ee = substep(sc, carry, controls.q_target, controls.f_target,
+                            controls.door_motor_on, controls.door_target)
+    return state_of(state, carry, ee)

@@ -93,7 +93,8 @@ def bind(lib):
     so.ik_count.argtypes = [P, P, I, I, F, F, F, I]
     so.engine_count.argtypes = [I, I, I, P, P, P, P, I, I, I, I]
     so.multibody_count.argtypes = [I, I, ctypes.c_uint, I, ctypes.c_ulonglong,
-                                   I, I, P, P, P, P, I, I, I, I, I]
+                                   I, I, I, ctypes.c_uint, I, I, P, P, P, P, I,
+                                   I, I, I, I]
     so.ik_count.restype = so.engine_count.restype = ctypes.c_ulonglong
     so.multibody_count.restype = ctypes.c_ulonglong
     return so

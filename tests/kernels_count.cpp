@@ -1,5 +1,7 @@
 // Operation count of the port's CUDA kernels on given inputs: the
-// per-environment device code of csrc/ik.cu and csrc/engine.cu compiled by
+// per-environment device code of csrc/ik.cu, csrc/engine.cu and K3's
+// csrc/multibody.cuh (its instances in multibody.cu, chest_push.cu and
+// chest_pick.cu) compiled by
 // the host C++ compiler with every `float` replaced by `Flop`, a float that
 // counts the arithmetic done on it (tests/kernel_ops.py builds and calls it;
 // chip_smoke.py takes the kernels' operation bound from it).
@@ -97,6 +99,8 @@ inline Flop atan2f(Flop a, Flop b) {
 #include "../pybullet_multigoal_gym_tpu_torch/csrc/engine.cu"
 #include "../pybullet_multigoal_gym_tpu_torch/csrc/ik.cu"
 #include "../pybullet_multigoal_gym_tpu_torch/csrc/multibody.cu"
+#include "../pybullet_multigoal_gym_tpu_torch/csrc/chest_pick.cu"
+#include "../pybullet_multigoal_gym_tpu_torch/csrc/chest_push.cu"
 #undef float
 
 namespace {
@@ -173,33 +177,30 @@ extern "C" unsigned long long engine_count(int has_body, int plane_mask,
 
 // The K3 scenes counted here: those whose bound chip_smoke.py reports
 // (block_rearrange with 2 blocks, block_stack with 5, the push-primitive
-// slot and cube, insertion, end-effector control; packed as in
-// multibody.cu); each instance of the counting float takes seconds to
-// compile.
+// slot and cube, insertion, chest_push with 4 blocks, end-effector
+// control; packed as in multibody.cu); each instance of the counting float
+// takes seconds to compile.
 #define MULTIBODY_COUNTED(X)                                                \
-    X(2, 2, 0x10, 0x40, 0x3060, 0x0, 0x0)                                   \
-    X(5, 5, 0x43210, 0x40, 0x78f1e3c78, 0x0, 0x0)                           \
-    X(2, 4, 0x1000, 0x7c, 0xfffffff, 0x6, 0x0)                              \
-    X(2, 5, 0x11110, 0x7c, 0x7ffffffff, 0x1c, 0x2)
+    X(2, 2, 0x10, 0x40, 0x3060, 0x0, 0x0, 0, 0x0, 0, 0x0)                   \
+    X(5, 5, 0x43210, 0x40, 0x78f1e3c78, 0x0, 0x0, 0, 0x0, 0, 0x0)           \
+    X(2, 4, 0x1000, 0x7c, 0xfffffff, 0x6, 0x0, 0, 0x0, 0, 0x0)              \
+    X(2, 5, 0x11110, 0x7c, 0x7ffffffff, 0x1c, 0x2, 0, 0x0, 0, 0x0)          \
+    X(4, 4, 0x3210, 0x40, 0xf1e3c78, 0x0, 0x0, 3, 0x1c3870, 2, 0x70)
 
 // Same inputs and outputs as tests/kernels_host.cpp's multibody_host;
 // returns the operation count over all n environments, or ~0 for a scene
 // this build does not count.
 extern "C" unsigned long long multibody_count(
-    int nb, int ng, unsigned geom_bodies, int plane_mask,
-    unsigned long long geom_masks, int offset_geoms, int pinned_bodies,
-    const float* st, const float* ctl, const float* prm, float* out,
-    int n_prm, int n, int n_sub, int iters, int threads) {
+    MB_LAUNCH_PARAMS, const float* st, const float* ctl, const float* prm,
+    float* out, int n_prm, int n, int n_sub, int iters, int threads) {
     const long rows = 18 + 13L * nb + 5;
     std::vector<Flop> fst = data(st, rows * n),
                       fctl = data(ctl, (long)kin::mb::N_CTRL * n),
                       fprm = data(prm, n_prm), fout(rows * n);
-#define MULTIBODY_CASE(NB, NG, GB, PM, GM, OM, PIN)                         \
-    if (nb == NB && ng == NG && geom_bodies == GB && plane_mask == PM &&    \
-        geom_masks == GM##ULL && offset_geoms == OM &&                      \
-        pinned_bodies == PIN) {                                             \
+#define MULTIBODY_CASE(...)                                                 \
+    if (MB_SCENE_MATCHES(__VA_ARGS__)) {                                    \
         unsigned long long ops = count_envs(n, threads, [&](int i) {        \
-            kin::mb::multibody_env<NB, NG, GB, PM, GM##ULL, OM, PIN>(       \
+            kin::mb::multibody_env<MB_SCENE_ARGS(__VA_ARGS__)>(             \
                 fst.data(), fctl.data(), fprm.data(), fout.data(), n, i,    \
                 n_sub, iters);                                              \
         });                                                                 \

@@ -1,7 +1,7 @@
 """The port stands alone: importing it and stepping an env of each family
-(reach, and block_rearrange on the multi-body engine), and resetting a
-push-primitive env and an insertion env, loads neither JAX nor any module
-of the JAX package,
+(reach, and block_rearrange and chest_push on the multi-body engine), and
+resetting a push-primitive env and an insertion env, loads neither JAX nor
+any module of the JAX package,
 and its entry point asks for CUDA unless the caller passes
 ``device='cpu'``."""
 
@@ -34,6 +34,11 @@ multi = port.make_vec_env(num_envs=2, task='block_rearrange', num_block=1,
 mstate, mobs = multi.reset()
 mstate, mobs, _, _, _ = multi.step(mstate, torch.zeros((2, 3)))
 interop.state_to_numpy(mstate)
+chest = port.make_vec_env(num_envs=2, task='chest_push', num_block=1,
+                          device='cpu')
+cstate, cobs = chest.reset()
+cstate, cobs, _, _, _ = chest.step(cstate, torch.zeros((2, 3)))
+interop.state_to_numpy(cstate)
 prim = port.make_vec_env(num_envs=2, task='primitive_push_assemble',
                          primitive='discrete_push', device='cpu')
 pstate, pobs = prim.reset()
@@ -50,6 +55,7 @@ bad = sorted(m for m in sys.modules
              or m.startswith('pybullet_multigoal_gym_tpu.'))
 print(json.dumps({'bad': bad, 'obs': list(obs['observation'].shape),
                   'multi_obs': list(mobs['observation'].shape),
+                  'chest_obs': list(cobs['observation'].shape),
                   'prim_obs': list(pobs['observation'].shape),
                   'ins_obs': list(iobs['observation'].shape)}))
 '''
@@ -91,7 +97,8 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res == {'bad': [], 'obs': [2, 3], 'multi_obs': [2, 24],
-                   'prim_obs': [2, 12], 'ins_obs': [2, 24]}
+                   'chest_obs': [2, 44], 'prim_obs': [2, 12],
+                   'ins_obs': [2, 24]}
 
 
 def test_default_device_is_cuda():

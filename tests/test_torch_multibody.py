@@ -117,11 +117,12 @@ def test_lane_plan_matches_pallas_count(nb, joint_control):
 
 
 def test_unsupported_scenes_raise():
+    """What later slices bring: the revolving chest door and cylinder
+    bodies."""
     with pytest.raises(NotImplementedError, match='later slice'):
-        D.multibody_consts(S.multi_step_scene(2, chest=True))
+        D.multibody_consts(S.multi_step_scene(2, True, 'revolving'))
     with pytest.raises(NotImplementedError, match='later slice'):
-        make_vec_env(num_envs=2, task='chest_push', num_block=2,
-                     device='cpu')
+        D.multibody_consts(S.single_step_scene(True, 'long_table'))
 
 
 def test_insertion_scene_builds():

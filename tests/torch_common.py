@@ -257,8 +257,7 @@ def plain_run(sc, st, ctl, n_sub, noise_seed=None):
     which enters a run at every substep."""
     multi = isinstance(sc, D.MultiBodyConsts)
     if multi:
-        carry = (st.q, st.qd, st.fq, st.fqd, st.body_pos, st.body_quat,
-                 st.body_linvel, st.body_angvel)
+        carry = MP.carry_of(sc, st)
         groups = [MP.lane_group(l) for l in MP.lane_plan(sc)]
         # per geom pair of two free bodies its 10 lanes, and the edge lane
         # of each free geom against each pinned geom
@@ -277,10 +276,10 @@ def plain_run(sc, st, ctl, n_sub, noise_seed=None):
     ee = st.ee_contact_force
     for _ in range(n_sub):
         if g is None:
-            q, _, fq, _, bp, bq, _, _ = carry
+            q, _, fq, _, bp, bq, _, _ = carry[:8]
             if multi:
                 act = MP.build_lanes(sc, EP.fk_chain(q, fq), bp, bq,
-                                     EP.qmat(bq))[3]
+                                     EP.qmat(bq), *carry[8:9])[3]
                 lanes = [(grp, act[:, k]) for k, grp in enumerate(groups)]
                 lanes += [(name, act[:, k]) for k, name in pairs]
             else:
@@ -294,14 +293,17 @@ def plain_run(sc, st, ctl, n_sub, noise_seed=None):
                 -1, 2, x.shape, generator=g, device=x.device).to(x.dtype))
                 for x in carry)
         if multi:
-            carry, ee = MP.substep(sc, carry, ctl.q_target, ctl.f_target)
+            carry, ee = MP.substep(sc, carry, ctl.q_target, ctl.f_target,
+                                   ctl.door_motor_on, ctl.door_target)
         else:
             carry, ee = EP.substep(sc, carry, ctl.q_target, ctl.f_target)
-    q, qd, fq, fqd, bp, bq, bv, bw = carry
-    if not multi:
-        bp, bq, bv, bw = bp[:, None], bq[:, None], bv[:, None], bw[:, None]
-    out = st._replace(q=q, qd=qd, fq=fq, fqd=fqd, body_pos=bp, body_quat=bq,
-                      body_linvel=bv, body_angvel=bw, ee_contact_force=ee)
+    if multi:
+        out = MP.state_of(st, carry, ee)
+    else:
+        q, qd, fq, fqd, bp, bq, bv, bw = carry
+        out = st._replace(q=q, qd=qd, fq=fq, fqd=fqd, body_pos=bp[:, None],
+                          body_quat=bq[:, None], body_linvel=bv[:, None],
+                          body_angvel=bw[:, None], ee_contact_force=ee)
     return out, {k: float(v.float().mean()) for k, v in sorted(active.items())}
 
 
@@ -575,3 +577,191 @@ def insertion_inputs(kind, count, seed=0):
     ctl.update(q_target=q[pick] + u(-0.01, 0.01, (count, 7)),
                f_target=np.zeros((count, 2), np.float32))
     return st, ctl
+
+
+# the chest scenes (tests/test_torch_chest.py, chip_smoke.py): the door kind
+# of each chest task, and the tip's start (the family's rest pose)
+CHEST_DOOR = {'chest_push': 'front_sliding',
+              'chest_pick_and_place': 'up_sliding'}
+_CHEST_TIP = {'front_sliding': (-0.52, 0.0, 0.176),
+              'up_sliding': (-0.52, 0.0, 0.25)}
+# blocks on the table beside the chest, apart (x, y)
+_CHEST_TABLE = np.array([[-0.50, 0.08], [-0.45, -0.06], [-0.42, 0.10],
+                         [-0.48, -0.13], [-0.40, -0.01]], np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def chest_rest(door):
+    """The chest family's rest pose for ``door`` (IK to its tip start, as
+    `KukaEnvBase` derives it), numpy (7,)."""
+    from pybullet_multigoal_gym_tpu_torch.ops import ik
+    return n(ik.solve(t(_CHEST_TIP[door]), q_init=t(KM.KUKA_REST_POSE)))
+
+
+def _tip_q(door, tips):
+    """IK (40 iterations from the rest pose) for tip targets (count, 3),
+    numpy."""
+    from pybullet_multigoal_gym_tpu_torch.ops import ik
+    rest = t(chest_rest(door)).expand(len(tips), 7)
+    return n(ik.solve(t(tips), q_init=rest, rest_pose=rest))
+
+
+def chest_inputs(door, nb, kind, count, seed=0):
+    """Physics state and controls (numpy) for the chest scene of ``door``
+    ('front_sliding': chest_push's, 'up_sliding': chest_pick_and_place's)
+    with ``nb`` blocks. The chest's walls span x [-0.695, -0.605], y
+    [-0.07, 0.07] up to z 0.26 (the back wall at x -0.7, the up_sliding
+    chest's front wall at -0.6); the front_sliding door is the front face
+    at x -0.597, its handle at x -0.567, z 0.25, sliding +y; the up_sliding
+    door is the lid at z 0.267, its handle at (-0.58, 0.065, 0.292),
+    sliding -x.
+    'drop': the door open, block 0 dropped inside the chest against its
+    left wall (box-static lanes act), the others dropped on the table
+    beside it, the arm at the family's rest pose.
+    'handle': the door nearly closed, the pads against its handle and the
+    arm driving them along the door's axis (the expert's sweep,
+    tests/policies.py:319-330 and :378-389) with the motor off:
+    finger-door lanes act and the door moves.
+    'door_block': the door closed; in even envs a block pressed by the
+    pads against the door (front_sliding: its face, as in the JAX package's
+    `test_block_trapped_against_door_stalls`; up_sliding: a block on the lid
+    pushed along it), in odd envs a block pressed against the door and the
+    pads on the handle at once (box-door and finger-door lanes in one env).
+    'hold_open': the door's motor on, the door within 3 mm of its limit
+    and moving into the stop; the arm leans on the chest's left wall, a pad
+    on its outer face and the palm sphere on its top edge (finger-static
+    and sphere-static lanes act).
+    'spawn': the reset pose, blocks resting on the table, the door closed,
+    zero actions (for chest_push the palm sphere grazes the door's handle,
+    as in the JAX package's `test_chest_quiescence`)."""
+    rng = np.random.default_rng(seed)
+
+    def u(lo, hi, shape=()):
+        return rng.uniform(lo, hi, (count,) + shape).astype(np.float32)
+
+    limit = 0.12 if door == 'front_sliding' else 0.10
+    front = door == 'front_sliding'
+    rest = chest_rest(door)
+    z3 = np.zeros((count, nb, 3), np.float32)
+    st = mk_state(False, count, seed)
+    table = np.concatenate(
+        [_CHEST_TABLE[None, :nb] + u(-0.01, 0.01, (nb, 2)),
+         np.full((count, nb, 1), 0.175, np.float32)], -1)
+    st.update(q=np.tile(rest, (count, 1)),
+              fq=np.full((count, 2), KM.FINGER_LIMIT, np.float32),
+              body_pos=table, body_quat=np.tile(np.array(
+                  [1.0, 0, 0, 0], np.float32), (count, nb, 1)),
+              body_linvel=z3, body_angvel=z3.copy())
+    ctl = mk_controls(count)
+    ctl.update(q_target=st['q'].copy(),
+               f_target=np.full((count, 2), KM.FINGER_LIMIT, np.float32))
+    if kind == 'spawn':
+        return st, ctl
+    if kind == 'drop':
+        bp = table.copy()
+        bp[:, 1:, 2] += u(0.001, 0.02, (nb - 1,))
+        # block 0 inside, within 1 mm of the left wall's inner face (y 0.06)
+        bp[:, 0] = np.stack([-0.65 + u(-0.01, 0.01), 0.045 + u(-0.001, 0.0005),
+                             0.176 + u(0.0, 0.01)], -1)
+        st.update(body_pos=bp, body_quat=_tilted(rng, (count, nb), 0.01),
+                  door_q=np.full(count, limit, np.float32))
+        return st, ctl
+    if kind == 'hold_open':
+        # the pad 0.5 mm into the wall's outer face (y 0.07), the palm
+        # sphere (0.065 above the tip, radius 0.028) 0-1 mm into its top edge
+        tips = np.stack([-0.63 + u(-0.01, 0.01), 0.0795 + u(-0.0003, 0.0003),
+                         0.2208 + u(-0.0007, 0.0)], -1)
+        q = _tip_q(door, tips)
+        st.update(q=q, qd=u(-0.01, 0.01, (7,)),
+                  door_q=limit - u(0.0, 0.003), door_qd=u(0.02, 0.1))
+        ctl.update(q_target=q + u(-0.005, 0.005, (7,)),
+                   door_motor_on=np.ones(count, bool),
+                   door_target=np.full(count, limit, np.float32))
+        return st, ctl
+    odd = np.arange(count) % 2 == 1
+    if kind == 'handle':
+        dq = u(0.0, 0.03)
+        if front:     # the pads on the handle's -y face, sweeping +y
+            tips = np.stack([-0.567 + u(-0.003, 0.003),
+                             dq - 0.0195 + u(-0.0003, 0.0003),
+                             0.215 + u(-0.005, 0.005)], -1)
+            step = np.array([0.0, 0.01, 0.0], np.float32)
+        else:         # the pads on the handle's +x face, sweeping -x
+            tips = np.stack([-0.5475 - dq + u(-0.0003, 0.0003),
+                             0.065 + u(-0.003, 0.003),
+                             0.26 + u(-0.005, 0.005)], -1)
+            step = np.array([-0.01, 0.0, 0.0], np.float32)
+        st.update(door_q=dq)
+    else:
+        assert kind == 'door_block', kind
+        bp = st['body_pos']
+        if front:
+            # even: the block against the face at |y| in [0.035, 0.055],
+            # the pads behind it; odd: the block under the handle, the pads
+            # on the handle's -y face
+            y = np.where(odd, u(-0.005, 0.005), np.where(
+                rng.random(count) < 0.5, 1, -1) * u(0.035, 0.055))
+            bp[:, 0] = np.stack([-0.577 + u(0.0, 0.0005), y,
+                                 np.full(count, 0.175, np.float32)], -1)
+            tips = np.where(odd[:, None], np.stack(
+                [-0.567 + u(-0.003, 0.003), -0.0195 + u(-0.0003, 0.0003),
+                 np.full(count, 0.215, np.float32)], -1), np.stack(
+                [bp[:, 0, 0] + 0.0275 - u(0.0, 0.0005), y,
+                 np.full(count, 0.185, np.float32)], -1))
+            step = np.where(odd[:, None], np.array([0.0, 0.01, 0.0]),
+                            np.array([-0.01, 0.0, 0.0])).astype(np.float32)
+        else:
+            # the block on the lid (top z 0.272); even: the pads behind its
+            # +x face pushing -x, odd: the pads on the handle's +x face
+            bp[:, 0] = np.stack([-0.65 + u(-0.02, 0.02), u(-0.02, 0.02),
+                                 0.287 + u(-0.0005, 0.0)], -1)
+            tips = np.where(odd[:, None], np.stack(
+                [-0.5475 + u(-0.0003, 0.0003), 0.065 + u(-0.003, 0.003),
+                 np.full(count, 0.26, np.float32)], -1), np.stack(
+                [bp[:, 0, 0] + 0.0275 - u(0.0, 0.0005), bp[:, 0, 1],
+                 np.full(count, 0.2895, np.float32)], -1))
+            step = np.array([-0.01, 0.0, 0.0], np.float32)
+        vel = z3.copy()
+        vel[:, 0, 0] = -u(0.0, 0.05)
+        st.update(body_pos=bp, body_linvel=vel)
+    q = _tip_q(door, tips.astype(np.float32))
+    push = _tip_q(door, (tips + step).astype(np.float32))
+    st.update(q=q, qd=((push - q) * 5.0).astype(np.float32))
+    ctl.update(q_target=push)
+    return st, ctl
+
+
+# the door-opening drive (tests/policies.py:ChestPushExpert, phases 0-3):
+# above the handle's -y side, and down at the handle's height
+_HANDLE_ABOVE = (-0.567, -0.06, 0.33)
+_HANDLE_LOW = (-0.567, -0.06, 0.215)
+
+
+def door_opening_action(obs, phase):
+    """One step of phases 0-3 of the JAX package's chest_push expert
+    (tests/policies.py:296-332) for a batch of envs at once: 0 rise until the
+    tip is above 0.32, 1 go above the handle's -y side, 2 descend to the
+    handle's height, 3 sweep +y until the door has slid to 0.112; then 4
+    retreat up and back until above 0.3, 5 hold still. Each env's action
+    comes from its phase, and then its phase moves on from the same
+    observation, as the expert does it. Returns (actions (N, 3), phase)."""
+    grip = obs['policy_state'][:, :3]
+    door_q = obs['achieved_goal'][:, 0]
+    above, low = t(_HANDLE_ABOVE, grip.device), t(_HANDLE_LOW, grip.device)
+    acts = torch.stack([
+        t([0.0, 0.0, 1.0], grip.device).expand_as(grip),
+        torch.clamp((above - grip) * 25, -1, 1),
+        torch.clamp((low - grip) * 25, -1, 1),
+        t([0.0, 1.0, 0.0], grip.device).expand_as(grip),
+        t([-0.3, -0.5, 1.0], grip.device).expand_as(grip),
+        torch.zeros_like(grip)], 1)
+    a = acts[torch.arange(len(phase), device=grip.device), phase]
+    step = torch.stack([
+        grip[:, 2] > 0.32,
+        torch.linalg.vector_norm(grip[:, :2] - above[:2], dim=-1) < 0.008,
+        (grip[:, 2] - low[2]).abs() < 0.005,
+        door_q >= 0.112,
+        grip[:, 2] > 0.3,
+        torch.zeros_like(door_q, dtype=torch.bool)], 1)
+    moves = step[torch.arange(len(phase), device=grip.device), phase]
+    return a, phase + moves.long()
