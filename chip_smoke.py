@@ -15,11 +15,13 @@ discrete_push and primitive_push_reach with continuous_push, 1024 envs: 20
 K1 launches at 16 iterations and 20 K3 launches of 80 substeps per step) on
 K1 and K3's bodies of several geoms, insertion (1024 envs, 60 steps
 across one auto-reset: K1 toward a rotation target, K3 with a pinned body)
-on K1 and K3's pinned-body lanes, and the chest tasks (chest_push with 4
-and 2 blocks at 1024 envs for 60 steps across one auto-reset,
-chest_pick_and_place for 5, its 558-lane joint-control plan for one, and a
-door-opening drive) on K1 and K3's static-wall and door lanes. One JSON
-line per check or phase, each
+on K1 and K3's pinned-body lanes, slide (4096 envs, 60 steps across one
+auto-reset, and a scripted strike through `make_env`'s single-env adapter
+under joint control) on K1 and K2's cylinder lanes, and the chest tasks
+(chest_push with 4 and 2 blocks at 1024 envs for 60 steps across one
+auto-reset, chest_pick_and_place for 5, its 558-lane joint-control plan for
+one, and a door-opening drive) on K1 and K3's static-wall and door lanes.
+One JSON line per check or phase, each
 with the ``seconds`` since the line before it; the kernels line, the card's
 name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``. Stops at the first failure with a non-zero exit and no result;
@@ -48,6 +50,14 @@ INS_ENVS, INS_STEPS, INS_TIMED_FROM = 1024, MAIN_STEPS, TIMED_FROM
 # until its sweep has ended in every env or for this many steps
 CHEST_ENVS, CHEST_STEPS, CHEST_TIMED_FROM = 1024, MAIN_STEPS, TIMED_FROM
 DOOR_DRIVE_STEPS = 150
+# slide's scripted strike: episodes of the single-env adapter, and their
+# length (tests/test_acceptance.py:test_slide_scripted)
+STRIKE_EPISODES, STRIKE_STEPS = 4, 150
+# the lowest the puck's centre may go in any step of the strike (it rests
+# at 0.170): a pad riding onto its cap presses it into the table. On this
+# strike's own states the JAX package's engine takes it to 0.1492 and the
+# port's plain version to 0.1557 (PERF.md, PR 8: tests/slide_strike_pair.py)
+STRIKE_FLOOR_Z = 0.14
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 (non-tensor)
 # operations/s; a card below 700 W runs slower than these
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -370,28 +380,33 @@ def main_path_check(phase, sc, w, c, n_fields, substeps=FLAT, **tag):
 
 
 def main_path_name(c):
+    """The inputs' name in a check's line: a stress state's own, or the
+    main path's step (and sub-target)."""
+    if 'inputs' in c:
+        return c['inputs']
     name = 'main path, step %d' % c['step']
     return name + (', sub-target %d' % c['sub_target']
                    if 'sub_target' in c else '')
 
 
 def forced_check(phase, sc, w, c, n_fields, n_sub, tol=1e-4, **tag):
-    """K3 against its plain version in every substep of a main path's own
-    control step ``c``, each from the plain version's own state: the plain
-    trajectory's state before each of ``n_sub`` substeps, all given to the
-    kernel in one launch of one substep, and each env's state after it
-    within ``tol`` of the plain trajectory's next state, in every env and
-    substep (``envs`` in the line counts env-substeps). A free run of the
-    push primitive's 80 substeps is chaotic (the slot rocks on the plate,
-    and where a rocking corner lands is settled on the last bit), so after
-    it an env can lie beyond the plain version's noise bound while the
-    arithmetic of every substep agrees; this check holds that arithmetic
-    with no noise bound, and `free_reading` prints the free run."""
+    """A control-step kernel against its plain version in every substep of
+    a control step ``c`` (a main path's own inputs, or a stress state's),
+    each from the plain version's own state: the plain trajectory's state
+    before each of ``n_sub`` substeps
+    (tests/torch_common.py:plain_trajectory), all given to the kernel in one
+    launch of one substep, and each env's state after it within ``tol`` of
+    the plain trajectory's next state, in every env and substep (``envs``
+    in the line counts env-substeps). A free run can be chaotic (the push
+    primitive's slot rocks on the plate, and where a rocking corner lands
+    is settled on the last bit), so after it an env can lie beyond the
+    plain version's noise bound while the arithmetic of every substep
+    agrees; this check holds that arithmetic with no noise bound, and
+    `free_reading` prints the free run. Returns the largest error."""
     import torch
-    from pybullet_multigoal_gym_tpu_torch.ops import multibody_plain as MP
-    ctl, states = c['controls'], [c['phys']]
-    for _ in range(n_sub):
-        states.append(MP.control_step(sc, states[-1], ctl, 1))
+    from tests.torch_common import plain_trajectory
+    ctl = c['controls']
+    states = plain_trajectory(sc, c['phys'], ctl, n_sub)
 
     def stack(xs):      # NamedTuples of (N, ...) -> one of (len(xs) N, ...)
         return type(xs[0])(*(torch.cat(f) for f in zip(*xs)))
@@ -400,19 +415,21 @@ def forced_check(phase, sc, w, c, n_fields, n_sub, tol=1e-4, **tag):
                                 stack([ctl] * n_sub), n_fields, 1)
     held(phase, sc, 1, tol, out, e, active, None, inputs=main_path_name(c),
          from_plain_trajectory_substeps=n_sub, **tag)
+    return float(e.max())
 
 
 def free_reading(phase, sc, w, c, n_fields, n_sub, tol, **tag):
     """The free run beside `forced_check`: the kernel's and the plain
     version's ``n_sub`` substeps from ``c``, each env against the flat
     bound ``tol`` and its noise bound, printed and not held (`held` with
-    ``gate`` off)."""
+    ``gate`` off). Returns the largest error."""
     out, ref, active, e = compare(sc, w, c['phys'], c['controls'], n_fields,
                                   n_sub)
     noise = noise_check(sc, c['phys'], c['controls'], n_sub, ref, n_fields,
                         tol)[:2] + (0, 1.0)
     held(phase, sc, n_sub, tol, out, e, active, noise, gate=False,
          inputs=main_path_name(c), **tag)
+    return float(e.max())
 
 
 def stress_check(phase, sc, w, st, ctl, n_fields, substeps=FLAT, **tag):
@@ -1250,6 +1267,225 @@ def insertion_plain_check(torch, port, state, envs=64, tol=5e-3,
                              'plain path: %s' % res)
 
 
+SLIDE_GROUPS = ('cyl-plane', 'finger-cyl lateral', 'finger-cyl vertical',
+                'sphere-box')
+
+
+def phase_slide_k2(kernels, captured, count_lib):
+    """K2's cylinder instances (slide) against ops/engine_plain.py on the
+    card.
+
+    - slide's main path's own inputs, steps 1 and 26 of a seeded drive at
+      4096 envs. Under EE control (the main path), `main_path_check`. Under
+      joint control (every arm-sphere lane) the free run of 100 substeps is
+      chaotic: in one env of each capture the plain version's own noisy
+      runs part by 3 and 6.5. So, as on the primitive's main path: every
+      env after 2 substeps (`main_path_check`), the 100 substeps one at a
+      time from the plain trajectory's state, every env-substep within 1e-4
+      (`forced_check`), and the free run printed (`free_reading`).
+    - slide's stress states (tests/torch_common.py:slide_inputs, the CPU
+      tests' states at 4096 envs), `stress_check` (K2's rule: each env
+      within its own bound) after 2 substeps, and after 100 too for the
+      drop, the tilted puck, the coast and the sphere. In 'strike' and
+      'cap' the pads ram the puck into the table and the free run forks
+      on the last bit (PERF.md, PR 8: tests/k2_fork_witness.py), so their
+      100 substeps are held one at a time as the joint-control main
+      path's are (`forced_check`, `free_reading`). Each of the cylinder's
+      lane groups acts in the state made for it: the rim points ('tilt'),
+      the pads' lateral ('strike') and vertical ('cap') lanes, and an arm
+      sphere on the puck ('sphere').
+
+    Timed on the main path's inputs at step 26 (EE control), as push is
+    (`phase_engine`). Returns slide's figures: ``max_abs_err`` over the
+    main path's checks under EE control; under joint control the largest
+    error of its gated checks (2 substeps, and the forced substeps),
+    ``max_abs_err_joint``, and of its free run, ``..._free_run``."""
+    import torch
+    from pybullet_multigoal_gym_tpu_torch.ops import engine_plain as EP
+    from pybullet_multigoal_gym_tpu_torch.ops.cuda_engine import (CudaEngine,
+                                                                  pack)
+    from tests.kernel_ops import engine_ops
+    from tests.torch_common import (SLIDE_KINDS, slide_inputs,
+                                    torch_controls, torch_state)
+    engines, worst = {}, {'ee': 0.0, 'joint': 0.0, 'free': 0.0}
+    for control in ('ee', 'joint'):
+        cs = captured['slide' if control == 'ee' else 'slide_joint']
+        sc = cs[0]['scene']
+        w = CudaEngine(sc)
+        engines[control] = sc, w
+        tag = dict(task='slide', control=control)
+        for c in cs:
+            if control == 'ee':
+                worst['ee'] = max(worst['ee'], main_path_check(
+                    'k2_vs_plain', sc, w, c, N_FIELDS, **tag))
+                continue
+            worst['joint'] = max(
+                worst['joint'],
+                main_path_check('k2_vs_plain', sc, w, c, N_FIELDS,
+                                substeps=FLAT[:1], **tag),
+                forced_check('k2_vs_plain', sc, w, c, N_FIELDS, 100, **tag))
+            worst['free'] = max(worst['free'], free_reading(
+                'k2_free_run_reading', sc, w, c, N_FIELDS, *FLAT[1], **tag))
+    shares = {}
+    for kind in SLIDE_KINDS:
+        control = 'joint' if kind == 'sphere' else 'ee'
+        sc, w = engines[control]
+        st, ctl = slide_inputs(kind, N_ENVS)
+        c = dict(phys=torch_state(st, 'cuda'),
+                 controls=torch_controls(ctl, 'cuda'), inputs=kind)
+        tag = dict(task='slide', control=control)
+        rams = kind in ('strike', 'cap')
+        shares[kind] = stress_check(
+            'k2_vs_plain', sc, w, c['phys'], c['controls'], N_FIELDS,
+            substeps=FLAT[:1] if rams else FLAT, inputs=kind, **tag)
+        if rams:
+            forced_check('k2_vs_plain', sc, w, c, N_FIELDS, 100, **tag)
+            free_reading('k2_free_run_reading', sc, w, c, N_FIELDS,
+                         *FLAT[1], **tag)
+    made_for = dict(zip(('tilt', 'strike', 'cap', 'sphere'), SLIDE_GROUPS))
+    acts = {g: shares[k][g] for k, g in made_for.items()}
+    emit('k2_slide_lanes_active', shares=acts)
+    if not all(v > 0 for v in acts.values()):
+        raise AssertionError('a cylinder lane group acts in no env of the '
+                             'state made for it: %s' % acts)
+
+    sc, w = engines['ee']
+    c = captured['slide'][-1]
+    st, ctl = c['phys'], c['controls']
+    rows, ctl_rows = pack(st, ctl)
+    out = torch.empty_like(rows)
+    ms = time_ms(lambda: w.launch(rows, ctl_rows, out, 100), 10)
+    call_ms = time_ms(lambda: w.control_step(st, ctl), 10)
+    plain_ms = time_ms(lambda: EP.control_step(sc, st, ctl, 100), 1)
+    ops, _ = engine_ops(count_lib, sc, st, ctl, 100)
+    b_ms, b_by = bound_ms(N_ENVS * (34 + 9 + 34) * 4, ops)
+    res = dict(max_abs_err=worst['ee'], max_abs_err_joint=worst['joint'],
+               max_abs_err_joint_free_run=worst['free'], ms=ms,
+               call_ms=call_ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, ops=ops)
+    # the slide instances: engine_kernel<2, ...> (csrc/engine.cu BODY_CYL)
+    emit('k2_timing', task='slide', inputs='main path, step %d' % c['step'],
+         substeps=100, envs=N_ENVS, **res,
+         ptxas=[p for p in kernels['engine'].ptxas
+                if 'engine_kernelILi2E' in p['function']])
+    return res
+
+
+def phase_slide_main(torch, port, k2_call_ms):
+    """slide@4096 for 60 steps (auto-reset at step 50), timed over steps
+    11-60 as push is, with exactly one K1 and one K2 launch per step, and
+    K2's share of the step (the step-26 call against the timed step); then
+    its first 64 envs stepped once on the card and on the CPU from one
+    state (`plain_path_check`)."""
+    env, state, res = drive(torch, port, 'slide', MAIN_STEPS, seed=0)
+    emit('slide_path', card=card_line(), **res)
+    want = dict(ik=MAIN_STEPS, engine=MAIN_STEPS)
+    if not (res['obs_finite'] and res['shapes_ok']
+            and res['done_steps'] == [50] and res['all_done_steps'] == [50]
+            and res['launches'] == want):
+        raise AssertionError('slide path check failed: %s' % res)
+    step_ms = 1e3 * N_ENVS / res['env_steps_per_s']
+    emit('slide_step_breakdown', task='slide', envs=N_ENVS, step_ms=step_ms,
+         k2_call_ms=k2_call_ms, k2_share=k2_call_ms / step_ms,
+         card=card_line())
+    err = plain_path_check(torch, port, 'slide', state, env)
+    emit('slide_vs_plain', task='slide', envs=64, steps=1,
+         max_abs_err_obs=err, tol=5e-3)
+    if not err <= 5e-3:
+        raise AssertionError('slide: the kernel path disagrees with the '
+                             'plain path: %g' % err)
+    return res
+
+
+def phase_slide_strike(torch, port):
+    """The scripted strike (tests/policies.py:SlideExpert, the expert of
+    the JAX package's `test_slide_scripted`) through `make_env(task=
+    'slide', joint_control=True, max_episode_steps=150)` on the card, one
+    env, for STRIKE_EPISODES episodes; its IK is the port's plain
+    `ops/ik.solve`. K2 runs at 1 env here (one block of 32 threads, 31
+    masked): first held against its plain version on the first step's
+    inputs after 2 substeps (`main_path_check`). Gate: in every step the
+    puck is finite, above STRIKE_FLOOR_Z and under 0.25 m, and within 2.0 m
+    of the origin in xy (not launched); at the end of each episode it lies
+    on the table (0.16 < z < 0.25), as `test_slide_scripted` holds the JAX
+    package. Each episode's lowest height, the steps under 0.16 m and the
+    goal distances at the start and the end are printed; the distances
+    are not held."""
+    import contextlib
+    import numpy as np
+    from pybullet_multigoal_gym_tpu_torch.ops import dynamics as D
+    from pybullet_multigoal_gym_tpu_torch.ops import ik
+    from tests.policies import SlideExpert
+    with contextlib.redirect_stdout(sys.stderr):    # make_env's id line
+        env = port.make_env(task='slide', joint_control=True,
+                            max_episode_steps=STRIKE_STEPS, seed=0)
+    core = env.venv.core
+    rest = torch.as_tensor(core.rest_pose)
+
+    ik_calls = [0, 0.0]     # the expert's IK solves and their seconds
+
+    def ik_solve(p, qi):
+        t0 = time.perf_counter()
+        q = ik.solve(torch.as_tensor(p, dtype=torch.float32),
+                     q_init=torch.as_tensor(qi, dtype=torch.float32),
+                     rest_pose=rest).numpy()
+        ik_calls[0] += 1
+        ik_calls[1] += time.perf_counter() - t0
+        return q
+
+    expert = SlideExpert(ik_solve, core.rest_pose)
+    core.engine.launches = 0
+    init_d, final_d, steps, achieved, end_z = [], [], [], [], []
+    off_table, low_steps, lowest, farthest = False, 0, [], 0.0
+    for ep in range(STRIKE_EPISODES):
+        obs = env.reset()
+        expert.reset()
+        init_d.append(float(np.linalg.norm(obs['achieved_goal'][:2]
+                                           - obs['desired_goal'][:2])))
+        lowest.append(np.inf)
+        for k in range(STRIKE_STEPS):
+            action = expert(obs)
+            if ep == 0 and k == 0:
+                st, f_target = core.step_decode_pre(
+                    env._state, torch.as_tensor(action, device='cuda')[None])
+                zero = st.phys.door_q
+                c = dict(step=1, phys=st.phys, controls=D.Controls(
+                    q_target=core.arm_targets(st), f_target=f_target,
+                    door_motor_on=zero > 0, door_target=zero))
+                main_path_check('k2_vs_plain', core.scene, core.engine, c,
+                                N_FIELDS, substeps=FLAT[:1], task='slide',
+                                control='joint', envs_in_batch=1)
+                core.engine.launches = 0
+            obs, reward, done, info = env.step(action)
+            puck = obs['achieved_goal']
+            off_table = off_table or not bool(
+                np.isfinite(puck).all() and STRIKE_FLOOR_Z < puck[2] < 0.25
+                and np.linalg.norm(puck[:2]) < 2.0)
+            low_steps += int(puck[2] <= 0.16)
+            lowest[-1] = min(lowest[-1], float(puck[2]))
+            farthest = max(farthest, float(np.linalg.norm(puck[:2])))
+            if info['goal_achieved']:
+                break
+        steps.append(k + 1)
+        achieved.append(info['goal_achieved'])
+        end_z.append(float(puck[2]))
+        final_d.append(float(np.linalg.norm(puck[:2]
+                                            - obs['desired_goal'][:2])))
+    on_table = all(0.16 < z < 0.25 for z in end_z)
+    res = dict(episodes=STRIKE_EPISODES, steps=steps,
+               launches=core.engine.launches, ik_solves=ik_calls[0],
+               ik_seconds=ik_calls[1], floor_z=STRIKE_FLOOR_Z,
+               puck_left_the_table=off_table, puck_z_at_episode_end=end_z,
+               puck_on_table_at_end=on_table, puck_lowest_z=lowest,
+               steps_with_puck_under_016=low_steps,
+               puck_max_xy_norm=farthest, initial_goal_distance=init_d,
+               final_goal_distance=final_d, goal_achieved=achieved)
+    emit('slide_strike', card=card_line(), **res)
+    if off_table or not on_table or res['launches'] != sum(steps):
+        raise AssertionError('slide strike check failed: %s' % res)
+    return res
+
+
 def phase_main(torch, port):
     """The main path: push@4096 for 60 steps (auto-reset at step 50), then
     the same 64 envs stepped once on the card and on the CPU from one state,
@@ -1317,6 +1553,9 @@ def main():
     captured['primitive'] = primitive_main_inputs(torch, port)
     captured['insertion'] = main_path_inputs(torch, port, 'insertion',
                                              num_envs=INS_ENVS)
+    captured['slide'] = main_path_inputs(torch, port, 'slide')
+    # K1 does not run under joint control: K2's checks only
+    slide_joint = main_path_inputs(torch, port, 'slide', joint_control=True)
     ik_res = phase_ik(captured, count_lib)
     eng_res = phase_engine(kernels, captured, count_lib)
     main_res = phase_main(torch, port)
@@ -1324,6 +1563,10 @@ def main():
     multi_res, _ = phase_multi_main(torch, port)
     phase_primitive_main(torch, port)
     ins_launches = phase_insertion_main(torch, port)['launches']
+    slide_k2 = phase_slide_k2(kernels, dict(captured, slide_joint=slide_joint),
+                              count_lib)
+    slide_res = phase_slide_main(torch, port, slide_k2['call_ms'])
+    phase_slide_strike(torch, port)
     # the chest last: its kernels' larger stacks grow the runtime's
     # per-thread local memory for every later launch
     chest_k3 = phase_chest_k3(torch, port, kernels, count_lib)
@@ -1363,7 +1606,11 @@ def main():
              # to each env's own bound: see k2_vs_plain)
              max_abs_err=max(r['max_abs_err'] for r in eng_res.values()),
              ms=k2['ms'], plain_ms=k2['plain_ms'], bound_ms=k2['bound_ms'],
-             bound_by=k2['bound_by'], library_ms=None),
+             bound_by=k2['bound_by'], library_ms=None,
+             slide=dict(entry(slide_k2, slide_res['launches']['engine']),
+                        max_abs_err_joint=slide_k2['max_abs_err_joint'],
+                        max_abs_err_joint_free_run=slide_k2[
+                            'max_abs_err_joint_free_run'])),
         dict(name='K3 fused multi-body control step (block_rearrange, 2 '
                   'blocks, 100 substeps)', route='cuda',
              source='pybullet_multigoal_gym_tpu_torch/csrc/multibody.cu',

@@ -2,12 +2,14 @@
 // fused into one launch, one thread per environment.
 //
 // Replaces pybullet_multigoal_gym_tpu/ops/pallas_engine.py:_build_kernel
-// (launched through PallasEngine.control_step) for the no-object scene and
-// the one-free-box scene. Same physics as ops/engine_plain.py, the plain
-// PyTorch version it is checked against: arm and finger servos, gravity, FK,
-// the contact lanes (box-plane corners, finger-box SAT manifolds, finger-plane
-// corners, the arm-sphere lanes kept by ops/lane_cull.py; their geometry is in
-// lanes.cuh, shared with K3), an 8-iteration
+// (launched through PallasEngine.control_step) for the no-object scene, the
+// one-free-box scene and the one-free-cylinder scene (slide's puck). Same
+// physics as ops/engine_plain.py, the plain PyTorch version it is checked
+// against: arm and finger servos, gravity, FK, the contact lanes (box-plane
+// corners or the cylinder's 4 rim points, finger-box SAT manifolds or the
+// finger-cylinder lateral and vertical lanes, finger-plane corners, the
+// arm-sphere lanes kept by ops/lane_cull.py, which see the cylinder as a
+// box; their geometry is in lanes.cuh, shared with K3), an 8-iteration
 // mass-splitting Jacobi solve with Baumgarte bias and a friction clamp,
 // frozen-arm joint coupling, integration and the EE contact-force readback.
 //
@@ -15,8 +17,9 @@
 // nothing goes back to device memory between substeps. The state and
 // controls are read once, as SoA (rows, n) arrays so that neighbouring
 // threads read neighbouring addresses, and the state is written once. The
-// scene is a template (has a body; which arm spheres keep a plane / a box
-// lane), so the lane list is static, like the Python-built Pallas kernel.
+// scene is a template (its body: none, a box or a cylinder; which arm
+// spheres keep a plane / a body lane), so the lane list is static, like the
+// Python-built Pallas kernel.
 // The lane arrays (about 40 floats per lane, 33 lanes for push) do not fit
 // in registers and live in per-thread local memory, which the L1/L2 caches
 // hold at these sizes.
@@ -34,7 +37,11 @@
 
 namespace kin {
 
-// Scene parameters, in the order of ops/cuda_engine.py:scene_params.
+// The body of a scene (ops/cuda_engine.py:scene_key).
+enum { BODY_NONE = 0, BODY_BOX = 1, BODY_CYL = 2 };
+
+// Scene parameters, in the order of ops/cuda_engine.py:scene_params; a
+// cylinder's radius is P_HX and its half length P_HZ.
 enum {
     P_PLANE_Z, P_PLANE_FRIC, P_PLANE_MU, P_FINGER_MU, P_BODY_FRIC,
     P_HX, P_HY, P_HZ, P_INV_MASS, P_IIX, P_IIY, P_IIZ, P_ERP_DT, P_SLOP,
@@ -52,10 +59,14 @@ constexpr int popc7(int m) {
            (m >> 4 & 1) + (m >> 5 & 1) + (m >> 6 & 1);
 }
 
-template <bool HAS_BODY, int PLANE_MASK, int GEOM_MASK>
+template <int BODY, int PLANE_MASK, int GEOM_MASK>
 struct Plan {
-    // box-plane 4 + finger-box SAT 2 x 9, finger-plane 2 x 4, arm spheres
-    static constexpr int L = (HAS_BODY ? 4 + 18 : 0) + 8 + popc7(PLANE_MASK) +
+    // box-plane 4 + finger-box SAT 2 x 9, or cylinder-plane 4 + finger-
+    // cylinder 2 x 2; finger-plane 2 x 4, arm spheres
+    static constexpr bool HAS_BODY = BODY != BODY_NONE;
+    static constexpr int L = (BODY == BODY_BOX ? 4 + 18 : 0) +
+                             (BODY == BODY_CYL ? 4 + 4 : 0) + 8 +
+                             popc7(PLANE_MASK) +
                              (HAS_BODY ? popc7(GEOM_MASK) : 0);
 };
 
@@ -79,11 +90,12 @@ struct Lanes {
 };
 
 // One environment, n_sub substeps.
-template <bool HAS_BODY, int PLANE_MASK, int GEOM_MASK>
+template <int BODY, int PLANE_MASK, int GEOM_MASK>
 KDEV void engine_env(const float* __restrict__ st, const float* __restrict__ ctl,
                      const float* __restrict__ prm, float* __restrict__ out,
                      int n, int i, int n_sub, int iters) {
-    constexpr int L = Plan<HAS_BODY, PLANE_MASK, GEOM_MASK>::L;
+    constexpr bool HAS_BODY = Plan<BODY, PLANE_MASK, GEOM_MASK>::HAS_BODY;
+    constexpr int L = Plan<BODY, PLANE_MASK, GEOM_MASK>::L;
     const float plane_z = prm[P_PLANE_Z], plane_fric = prm[P_PLANE_FRIC];
     const float plane_mu = prm[P_PLANE_MU], finger_mu = prm[P_FINGER_MU];
     const float body_fric = prm[P_BODY_FRIC], inv_mass = prm[P_INV_MASS];
@@ -157,7 +169,7 @@ KDEV void engine_env(const float* __restrict__ st, const float* __restrict__ ctl
 
         // 5. contact lanes, in the order of pallas_engine.py:573-611
         ls.count = 0;
-        if (HAS_BODY) {
+        if (BODY == BODY_BOX) {
             box_plane_lanes(bp, Ra, half, plane_z,
                             [&](V3 p, V3 nl, float pen, float act) {
                                 ls.add(p, nl, pen, act, plane_mu, 1.0f, -1,
@@ -170,6 +182,21 @@ KDEV void engine_env(const float* __restrict__ st, const float* __restrict__ ctl
                                       ls.add(p, nl, pen, act, finger_mu, 1.0f,
                                              f, -1.0f, 6, -1.0f, 0.0f, -1.0f);
                                   });
+        }
+        if (BODY == BODY_CYL) {
+            // the pad is side B, the puck side A (pallas_engine.py:583-590)
+            cyl_plane_lanes(bp, bq, half[0], half[2], plane_z,
+                            [&](V3 p, V3 nl, float pen, float act) {
+                                ls.add(p, nl, pen, act, plane_mu, 1.0f, -1,
+                                       0.0f, -1, 0.0f, 0.0f, 0.0f);
+                            });
+#pragma unroll
+            for (int f = 0; f < 2; ++f)
+                box_cyl_lanes(fpos[f], Rb7, fhalf, bp, half[0], half[2],
+                              [&](V3 p, V3 nl, float pen, float act) {
+                                  ls.add(p, nl, pen, act, finger_mu, 1.0f, f,
+                                         -1.0f, 6, -1.0f, 0.0f, -1.0f);
+                              });
         }
 #pragma unroll
         for (int f = 0; f < 2; ++f)
@@ -393,37 +420,38 @@ KDEV void engine_env(const float* __restrict__ st, const float* __restrict__ ctl
 
 }  // namespace kin
 
-// The scenes this library holds, as (has a body, plane mask, box mask):
-// reach and push (pick_and_place) with the arm-sphere lanes of end-effector
-// control, and both with every sphere lane (joint control).
+// The scenes this library holds, as (body, plane mask, body mask): reach,
+// push (pick_and_place) and slide with the arm-sphere lanes of
+// end-effector control, and each with every sphere lane (joint control).
 #define ENGINE_SCENES(X) \
-    X(false, 0x40, 0x00) X(true, 0x40, 0x60) X(false, 0x7f, 0x00) X(true, 0x7f, 0x7f)
+    X(0, 0x40, 0x00) X(1, 0x40, 0x60) X(0, 0x7f, 0x00) X(1, 0x7f, 0x7f) \
+    X(2, 0x40, 0x78) X(2, 0x7f, 0x7f)
 
 #ifdef __CUDACC__
-template <bool HAS_BODY, int PLANE_MASK, int GEOM_MASK>
+template <int BODY, int PLANE_MASK, int GEOM_MASK>
 __global__ void __launch_bounds__(32)
 engine_kernel(const float* __restrict__ st, const float* __restrict__ ctl,
               const float* __restrict__ prm, float* __restrict__ out, int n,
               int n_sub, int iters) {
     int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i < n)
-        kin::engine_env<HAS_BODY, PLANE_MASK, GEOM_MASK>(st, ctl, prm, out, n,
-                                                          i, n_sub, iters);
+        kin::engine_env<BODY, PLANE_MASK, GEOM_MASK>(st, ctl, prm, out, n, i,
+                                                      n_sub, iters);
 }
 
 // Launch the scene's kernel on `stream`. Returns cudaErrorInvalidValue for a
 // scene this library does not hold, else cudaGetLastError() after the launch.
-extern "C" int engine_launch(int has_body, int plane_mask, int geom_mask,
+extern "C" int engine_launch(int body, int plane_mask, int geom_mask,
                              const float* st, const float* ctl,
                              const float* prm, float* out, int n, int n_sub,
                              int iters, void* stream) {
     if (n == 0) return 0;
     dim3 grid((n + 31) / 32), block(32);
     cudaStream_t s = (cudaStream_t)stream;
-#define ENGINE_CASE(HB, PM, GM)                                              \
-    if ((has_body != 0) == HB && plane_mask == PM && geom_mask == GM) {      \
-        engine_kernel<HB, PM, GM><<<grid, block, 0, s>>>(st, ctl, prm, out,  \
-                                                         n, n_sub, iters);   \
+#define ENGINE_CASE(B, PM, GM)                                               \
+    if (body == B && plane_mask == PM && geom_mask == GM) {                  \
+        engine_kernel<B, PM, GM><<<grid, block, 0, s>>>(st, ctl, prm, out,   \
+                                                        n, n_sub, iters);    \
         return (int)cudaGetLastError();                                      \
     }
     ENGINE_SCENES(ENGINE_CASE)

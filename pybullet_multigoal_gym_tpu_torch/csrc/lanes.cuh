@@ -1,8 +1,10 @@
 // Contact-lane geometry shared by the control-step kernels K2 (engine.cu)
 // and K3 (multibody.cu): box-plane, SAT box-box with incident corners and
 // the cross-piercing fallback (two-sided, or one-sided against an immovable
-// box), the edge-edge candidate, sphere-plane and sphere-box. Counterpart of the tile helpers of
-// pybullet_multigoal_gym_tpu/ops/pallas_engine.py:225-443; the plain PyTorch
+// box), the edge-edge candidate, sphere-plane and sphere-box, and for K2's
+// upright cylinder (slide's puck) cylinder-plane and box-cylinder.
+// Counterpart of the tile helpers of
+// pybullet_multigoal_gym_tpu/ops/pallas_engine.py:225-490; the plain PyTorch
 // versions are in ops/engine_plain.py.
 //
 // A builder computes its lanes for one environment and hands each to
@@ -185,6 +187,64 @@ KDEV void box_box_one_sided(V3 ca, const M3& Ra, const float ha[3], V3 cb,
                             const M3& Rb, const float hb[3], Emit&& emit) {
     box_box_manifold<false>(ca, Ra, ha, cb, Rb, hb, emit);
     if (EDGE) edge_lane(ca, Ra, ha, cb, Rb, hb, emit);
+}
+
+// The cylinder's rim points at angles 2 pi k / 4 as factors of the radius:
+// the float32 roundings of their cosines and sines (ops/engine_plain.py's
+// _RIM_COS / _RIM_SIN).
+KTABLE float RIM_COS[4] = {1.0, 6.123233995736766e-17, -1.0,
+                           -1.8369701987210297e-16};
+KTABLE float RIM_SIN[4] = {0.0, 1.0, 1.2246467991473532e-16, -1.0};
+
+// 4-lane upright cylinder vs plane: the bottom cap's rim points, placed
+// with the body quaternion (pallas_engine.py:_cyl_plane_lanes).
+template <class Emit>
+KDEV void cyl_plane_lanes(V3 c, Q4 q, float radius, float half_len,
+                          float plane_z, Emit&& emit) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        V3 loc = {radius * RIM_COS[k], radius * RIM_SIN[k], -half_len};
+        V3 p = c + qrotate(q, loc);
+        float pen = plane_z - p.z;
+        emit(p, V3{0.0f, 0.0f, 1.0f}, pen, pen > -1e-4f ? 1.0f : 0.0f);
+    }
+}
+
+// Box (side B, a finger pad) vs upright cylinder (side A, the puck): a
+// lateral lane and a vertical lane, exclusive, keyed on the smaller
+// penetration (pallas_engine.py:box_cyl_lanes); the normals point from the
+// box toward the cylinder. Where the cylinder's axis lies inside the box in
+// the box's xy (d_xy <= 1e-6), the lateral lane leaves through the nearer
+// side face.
+template <class Emit>
+KDEV void box_cyl_lanes(V3 cb, const M3& Rb, const float hb[3], V3 cc,
+                        float radius, float half_len, Emit&& emit) {
+    V3 rel = cc - cb;
+    float cl[3] = {dot(col(Rb, 0), rel), dot(col(Rb, 1), rel),
+                   dot(col(Rb, 2), rel)};
+    float dx = cl[0] - clampf(cl[0], -hb[0], hb[0]);
+    float dy = cl[1] - clampf(cl[1], -hb[1], hb[1]);
+    float d_xy = sqrtf(dx * dx + dy * dy);
+    float outside = d_xy > 1e-6f ? 1.0f : 0.0f;
+    float e0 = hb[0] - fabsf(cl[0]), e1 = hb[1] - fabsf(cl[1]);
+    float is0 = e0 <= e1 ? 1.0f : 0.0f;
+    float emin = fminf(e0, e1);
+    float lat_pen = (radius - d_xy) * outside + (radius + emin) * (1.0f - outside);
+    float inv = 1.0f / fmaxf(d_xy, 1e-6f);
+    float nx = dx * inv * outside + is0 * sgnf(cl[0]) * (1.0f - outside);
+    float ny = dy * inv * outside + (1.0f - is0) * sgnf(cl[1]) * (1.0f - outside);
+    V3 n_lat = mat3vec(Rb, V3{nx, ny, 0.0f});
+    float z_reach = hb[2] + half_len;
+    float vert_pen = z_reach - fabsf(cl[2]);
+    float in_xy = (fabsf(cl[0]) < hb[0] + radius && fabsf(cl[1]) < hb[1] + radius)
+                      ? 1.0f : 0.0f;
+    float side_is_min = lat_pen <= vert_pen ? 1.0f : 0.0f;
+    float lat_act = (lat_pen > -1e-4f && fabsf(cl[2]) < z_reach ? 1.0f : 0.0f) *
+                    side_is_min;
+    float vert_act = (vert_pen > -1e-4f ? 1.0f : 0.0f) * in_xy * (1.0f - side_is_min);
+    V3 n_vert = mat3vec(Rb, V3{0.0f, 0.0f, sgnf(cl[2])});
+    emit(cc - n_lat * radius, n_lat, lat_pen, lat_act);
+    emit(cc - n_vert * half_len, n_vert, vert_pen, vert_act);
 }
 
 // Sphere vs support plane: 1 lane.

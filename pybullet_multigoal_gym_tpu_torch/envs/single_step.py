@@ -1,4 +1,4 @@
-"""Single-step task family: Reach / Push / PickAndPlace, batched.
+"""Single-step task family: Reach / Push / PickAndPlace / Slide, batched.
 
 Counterpart of `pybullet_multigoal_gym_tpu/envs/single_step.py` with the
 same observation, goal and reward contracts. Every method works on a whole
@@ -7,8 +7,7 @@ JAX package: ``step_decode_pre`` (action decoding), then the vec wrapper runs
 IK (kernel K1, `ops/cuda_ik.py`) and the control step (kernel K2,
 `ops/cuda_engine.py`), then ``step_finish`` (observation and reward).
 
-Slide (the cylinder branch of K2) and the Robotiq-85 gripper come with later
-slices of the port.
+The Robotiq-85 gripper comes with a later slice of the port.
 """
 
 import numpy as np
@@ -64,6 +63,11 @@ class KukaEnvBase:
         self.target_lower[2] = self.ee_lower[2]
         self.target_upper = tip_init + tgt_r
         self.target_upper[0] -= 0.03
+        if cfg.table_type == 'long_table':
+            # slide's goals lie beyond the workspace, on the long table
+            # (kuka_single_step_base_env.py:66-69)
+            self.target_lower[0] -= 0.4
+            self.target_upper[0] -= 0.4
         self.gripper_abs_joint_limit = KM.FINGER_LIMIT
         self.block_z = 0.175
         # rest pose: IK from the canonical pose to the tip start, on the CPU
@@ -163,18 +167,18 @@ class KukaEnvBase:
 
 
 class KukaSingleStepEnv(KukaEnvBase):
-    """Reach / Push / PickAndPlace (`envs/task_envs/kuka_single_step_envs.py`)
-    for a batch of environments on ``device``."""
+    """Reach / Push / PickAndPlace / Slide
+    (`envs/task_envs/kuka_single_step_envs.py`) for a batch of environments
+    on ``device``. Slide's puck is a cylinder on the long table (friction
+    0.05), resting 5 mm lower than the block."""
 
     def __init__(self, cfg: EnvConfig, device: torch.device):
         if cfg.family != 'single_step':
             raise NotImplementedError('family %r comes with a later slice of '
                                       'the port' % cfg.family)
-        if cfg.task == 'slide':
-            raise NotImplementedError('slide (the cylinder branch of the '
-                                      'control-step kernel) comes with a '
-                                      'later slice of the port')
         super().__init__(cfg, device)
+        # object_initial_pos['block'][2] (kuka_single_step_base_env.py:50-56)
+        self.block_z = 0.170 if cfg.table_type == 'long_table' else 0.175
         self.spec = S.single_step_scene(cfg.has_obj, cfg.table_type)
         self.nb = max(self.spec.n_bodies, 1)
         self.scene = D.scene_consts(self.spec, ik_workspace=self.ik_workspace)

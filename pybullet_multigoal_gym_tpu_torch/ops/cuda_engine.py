@@ -1,8 +1,8 @@
 """Kernel K2: the fused control step on the card (`csrc/engine.cu`).
 
 Replaces `pybullet_multigoal_gym_tpu/ops/pallas_engine.py:_build_kernel`
-(launched through `PallasEngine.control_step`) for the no-object scene and the
-one-free-box scene. Its plain version is `ops/engine_plain.py:control_step`:
+(launched through `PallasEngine.control_step`) for the no-object scene, the
+one-free-box scene and the one-free-cylinder scene (slide). Its plain version is `ops/engine_plain.py:control_step`:
 the wrapper runs that for tensors on the CPU and launches the kernel for
 tensors on a CUDA device, and raises for any other device.
 
@@ -11,20 +11,31 @@ state is read once and written once, as (34, N) SoA rows in the order of
 `pallas_engine.py:40-47` (q 7, qd 7, fq 2, fqd 2, body pos 3, quat 4, linvel
 3, angvel 3, EE force 3), and the controls as (9, N) rows (q target 7,
 finger target 2). The scene's static constants go in a small parameter
-vector; which lanes exist is a template of the kernel, picked by the scene.
+vector; which lanes exist is a template of the kernel, picked by the scene
+(`scene_key`).
 """
 
 import torch
 
 from pybullet_multigoal_gym_tpu_torch.ops import _build, engine_plain
 from pybullet_multigoal_gym_tpu_torch.ops import dynamics as D
+from pybullet_multigoal_gym_tpu_torch.ops import scene as S
 from pybullet_multigoal_gym_tpu_torch.ops.cuda_ik import (check_operand,
                                                          check_rows)
 
 
+def scene_key(sc: D.SceneConsts):
+    """The kernel instance a scene runs on (an `ENGINE_SCENES` entry of
+    `engine.cu`): its body (0 none, 1 a box, 2 a cylinder), and the arm
+    spheres that keep a plane lane and a body lane (bit masks)."""
+    body = 0 if not sc.has_body else (1 if sc.geom_type == S.BOX else 2)
+    return body, sc.plane_mask, sc.geom_mask
+
+
 def scene_params(sc: D.SceneConsts):
     """The kernel's parameter vector, in the order of `engine.cu`'s
-    ``P_*`` enum."""
+    ``P_*`` enum (a cylinder's radius is ``half[0]``, its half length
+    ``half[2]``)."""
     return [sc.plane_z, sc.plane_friction, sc.plane_mu, sc.finger_mu,
             sc.body_friction, sc.half[0], sc.half[1], sc.half[2],
             sc.inv_mass, sc.inv_inertia[0], sc.inv_inertia[1],
@@ -98,12 +109,10 @@ class CudaEngine:
                                device=device)
             self._params[device] = prm
         kern = _build.load('engine')
-        sc = self.sc
         stream = torch.cuda.current_stream(device).cuda_stream
         with torch.cuda.device(device):
-            rc = kern.fn(int(sc.has_body), sc.plane_mask, sc.geom_mask,
-                         st.data_ptr(), ctl.data_ptr(), prm.data_ptr(),
-                         out.data_ptr(), n, int(n_substeps),
-                         sc.solver_iters, stream)
+            rc = kern.fn(*scene_key(self.sc), st.data_ptr(), ctl.data_ptr(),
+                         prm.data_ptr(), out.data_ptr(), n, int(n_substeps),
+                         self.sc.solver_iters, stream)
         _build.check(rc, 'engine')
         self.launches += 1

@@ -5,8 +5,8 @@ Counterpart of the first part of `pybullet_multigoal_gym_tpu/ops/dynamics.py`
 and `Engine.init_state`), batched over a leading env axis. The physics itself
 is `ops/engine_plain.py` / `ops/multibody_plain.py` (plain PyTorch) and
 `ops/cuda_engine.py` / `ops/cuda_multibody.py` (the kernels) for scenes with
-at most one free body / several free and pinned bodies of box geoms, static
-boxes and a prismatic door. One control step =
+at most one free body (a box or an upright cylinder) / several free and
+pinned bodies of box geoms, static boxes and a prismatic door. One control step =
 ``n_substeps`` velocity-level substeps of ``DT_SUB`` seconds (5
 stepSimulation calls x 20 substeps = 100).
 """
@@ -61,7 +61,10 @@ class SceneConsts:
     """Everything static that the control step of a single-free-body scene
     needs, in float32 where the kernels read it."""
     has_body: bool
-    half: Tuple[float, float, float]        # box half extents
+    # the body's geom: S.BOX, or S.CYLINDER (slide's puck: radius = half[0],
+    # half length = half[2]; the arm spheres see it as the box ``half``)
+    geom_type: int
+    half: Tuple[float, float, float]        # half extents
     inv_mass: float
     inv_inertia: Tuple[float, float, float]  # body-frame diagonal
     body_friction: float
@@ -81,7 +84,7 @@ class SceneConsts:
 
 def scene_consts(spec: S.SceneSpec, ik_workspace: bool = True) -> SceneConsts:
     """Static constants of a single-step scene with the parallel-jaw
-    gripper: the no-object scene or one free box
+    gripper: the no-object scene, one free box or one free upright cylinder
     (`pallas_engine.py:497-534`). ``ik_workspace=False`` (joint control)
     keeps every arm-sphere lane."""
     assert spec.n_bodies <= 1 and spec.ns_static == 0 and spec.door is None, \
@@ -92,21 +95,20 @@ def scene_consts(spec: S.SceneSpec, ik_workspace: bool = True) -> SceneConsts:
                      if reach['plane'][sp])
     geom_mask = 0
     half, inv_mass, inv_inertia, fric = (0.0, 0.0, 0.0), 0.0, (0.0,) * 3, 0.0
+    geom_type = S.BOX
     if has_body:
         a = spec.np_arrays()
-        if int(a['geom_type'][0]) != S.BOX:
-            raise NotImplementedError('the cylinder scene (slide) comes with '
-                                      'a later slice of the port')
+        geom_type = int(a['geom_type'][0])
         half = tuple(float(x) for x in a['geom_half'][0])
         mass = float(a['body_mass'][0])
         inv_mass = 1.0 / mass
         fric = float(a['body_friction'][0])
-        inertia = S.body_inertia_diag(mass, half, S.BOX)
+        inertia = S.body_inertia_diag(mass, half, geom_type)
         inv_inertia = tuple(float(x) for x in (1.0 / inertia).astype(np.float32))
         geom_mask = sum(1 << sp for sp in range(N_ARM_SPHERES)
                         if reach['geom'][sp][0])
     return SceneConsts(
-        has_body=has_body, half=half, inv_mass=inv_mass,
+        has_body=has_body, geom_type=geom_type, half=half, inv_mass=inv_mass,
         inv_inertia=inv_inertia, body_friction=fric, plane_z=spec.plane_z,
         plane_friction=spec.plane_friction, plane_mu=fric * spec.plane_friction,
         finger_mu=fric * 1.0, plane_mask=plane_mask, geom_mask=geom_mask)

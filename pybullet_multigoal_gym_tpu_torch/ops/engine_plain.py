@@ -10,8 +10,9 @@ per-body, per-finger and per-arm sums depend on them.
 
 The CPU path and the tests run this module; on the card `ops/cuda_engine.py`
 launches `csrc/engine.cu` instead, and the chip smoke test holds the two
-against each other. Scope: the no-object scene (reach) and one free box
-(push, pick_and_place) with the parallel-jaw gripper. The lane builders
+against each other. Scope: the no-object scene (reach), one free box
+(push, pick_and_place) and one free upright cylinder (slide's puck) with the
+parallel-jaw gripper. The lane builders
 (and the edge-edge lane, which only K3 uses) also serve K3's plain version,
 `ops/multibody_plain.py`.
 """
@@ -25,7 +26,8 @@ from pybullet_multigoal_gym_tpu_torch.maths import quat as quatm
 from pybullet_multigoal_gym_tpu_torch.model import kuka_model as KM
 from pybullet_multigoal_gym_tpu_torch.ops import dynamics as D
 from pybullet_multigoal_gym_tpu_torch.ops import fk
-from pybullet_multigoal_gym_tpu_torch.utils.tensors import const
+from pybullet_multigoal_gym_tpu_torch.ops import scene as S
+from pybullet_multigoal_gym_tpu_torch.utils.tensors import const, index
 
 F32 = np.float32
 _ARM_INERTIA = np.asarray(KM.ARM_EFFECTIVE_INERTIA, F32)
@@ -83,7 +85,7 @@ def fk_chain(q, fq):
     loc = const(KM.FINGER_ORIGIN, q) + axis * fq[:, :, None]
     fpos = gbase[:, None] + qrotate(r7f, loc)
     faxis = qrotate(r7f, axis)
-    li = KM.ARM_SPHERE_LINK.tolist()
+    li = index(KM.ARM_SPHERE_LINK, q)
     spheres = o[:, li] + qrotate(rots[:, li], const(KM.ARM_SPHERE_OFFSET, q))
     return dict(o=o, rots=rots, z=z, r7=r7, gbase=gbase, fpos=fpos,
                 faxis=faxis, spheres=spheres)
@@ -149,6 +151,70 @@ def box_plane_lanes(bp, bq, half, plane_z, mu, **meta):
         lanes.append(_mk_lane(corner, up, pen, (pen > -1e-4).float(), mu,
                               **meta))
     return lanes
+
+
+# the cylinder's 4 rim points at angles 2 pi k / 4, as float32 factors of
+# the radius (the kernel's RIM_COS / RIM_SIN)
+_RIM_COS = [F32(np.cos(2.0 * np.pi * k / 4)) for k in range(4)]
+_RIM_SIN = [F32(np.sin(2.0 * np.pi * k / 4)) for k in range(4)]
+
+
+def cyl_plane_lanes(bp, bq, radius, half_len, plane_z, mu, **meta):
+    """4-lane upright cylinder vs plane: the bottom cap's rim points at 0,
+    90, 180 and 270 degrees (`pallas_engine.py:_cyl_plane_lanes`), placed
+    with the quaternion."""
+    r, hl = F32(radius), F32(half_len)
+    up = const(_EZ, bp).expand(bp.shape)
+    lanes = []
+    for k in range(4):
+        loc = const([r * _RIM_COS[k], r * _RIM_SIN[k], -hl], bp)
+        pt = bp + qrotate(bq, loc.expand(bp.shape))
+        pen = plane_z - pt[:, 2]
+        lanes.append(_mk_lane(pt, up, pen, (pen > -1e-4).float(), mu, **meta))
+    return lanes
+
+
+def box_cyl_lanes(cb, Rb, hb, cc, radius, half_len, mu, **meta):
+    """Box (side B: a finger pad) vs upright cylinder (side A: the puck): a
+    lateral and a vertical lane, exclusive, keyed on the smaller
+    penetration (`pallas_engine.py:box_cyl_lanes`, `contact.py:
+    box_cylinder_upright`); the normals point from the box toward the
+    cylinder. Where the cylinder's axis lies inside the box in the box's
+    xy, the lateral lane leaves through the nearer side face. The vertical
+    lane's point is the cap centre along the world normal, as the Pallas
+    kernel places it (the XLA engine uses the box-frame normal there)."""
+    r, hl = F32(radius), F32(half_len)
+    hb = [F32(h) for h in hb]
+    rel = cc - cb
+    cl = [vdot(_col(Rb, i), rel) for i in range(3)]
+    delta = [cl[i] - cl[i].clamp(float(-hb[i]), float(hb[i]))
+             for i in range(2)]
+    d_xy = torch.sqrt(delta[0] * delta[0] + delta[1] * delta[1])
+    outside = (d_xy > 1e-6).float()
+    e0 = float(hb[0]) - cl[0].abs()
+    e1 = float(hb[1]) - cl[1].abs()
+    is0 = (e0 <= e1).float()
+    emin = torch.minimum(e0, e1)
+    lat_pen = (float(r) - d_xy) * outside + (float(r) + emin) * (1.0 - outside)
+    inv = 1.0 / d_xy.clamp_min(1e-6)
+    nx = delta[0] * inv * outside + is0 * _sign(cl[0]) * (1.0 - outside)
+    ny = delta[1] * inv * outside + (1.0 - is0) * _sign(cl[1]) * (1.0 - outside)
+    n_lat = mat3vec(Rb, torch.stack([nx, ny, torch.zeros_like(nx)], -1))
+    p_lat = cc - n_lat * float(r)
+    z_reach = float(hb[2] + hl)
+    vert_pen = z_reach - cl[2].abs()
+    in_xy = ((cl[0].abs() < float(hb[0] + r))
+             & (cl[1].abs() < float(hb[1] + r))).float()
+    side_is_min = (lat_pen <= vert_pen).float()
+    lat_act = ((lat_pen > -1e-4) & (cl[2].abs() < z_reach)).float() \
+        * side_is_min
+    vert_act = (vert_pen > -1e-4).float() * in_xy * (1.0 - side_is_min)
+    sz = _sign(cl[2])
+    zero = torch.zeros_like(sz)
+    n_vert = mat3vec(Rb, torch.stack([zero, zero, sz], -1))
+    p_vert = cc - n_vert * float(hl)
+    return [_mk_lane(p_lat, n_lat, lat_pen, lat_act, mu, **meta),
+            _mk_lane(p_vert, n_vert, vert_pen, vert_act, mu, **meta)]
 
 
 def _proj(R, h, L):
@@ -244,7 +310,8 @@ def edge_lane(ca, Ra, ha, cb, Rb, hb, mu, **meta):
         min_f = ov if min_f is None else torch.minimum(min_f, ov)
     # pair p = 3 i + j: edge axis i of A, j of B
     ii, jj = [p // 3 for p in range(9)], [p % 3 for p in range(9)]
-    ea, eb = Ra[..., :, ii].transpose(-1, -2), Rb[..., :, jj].transpose(-1, -2)
+    ea = Ra[..., :, index(ii, Ra)].transpose(-1, -2)
+    eb = Rb[..., :, index(jj, Rb)].transpose(-1, -2)
     cA = [_col(Ra, k)[:, None] for k in range(3)]           # (N, 1, 3)
     cB = [_col(Rb, k)[:, None] for k in range(3)]
     t9 = t[:, None]
@@ -320,18 +387,27 @@ def sphere_box_lane(c, radius, cb, Rb, hb, mu, **meta):
 
 def build_lanes(sc: D.SceneConsts, ch, bp, bq, Ra):
     """All contact lanes of one substep, in the order of
-    `pallas_engine.py:573-611`."""
+    `pallas_engine.py:573-611`. The arm spheres see the cylinder as the box
+    of its half extents, as both reference engines do."""
     fpos, r7 = ch['fpos'], ch['r7']
     Rb7 = qmat(r7)
     lanes = []
-    if sc.has_body:
+    pad = dict(body_sgn=1.0, fin_sgn=-1.0, link=6, arm_sgn=-1.0, ee_sgn=-1.0)
+    if sc.has_body and sc.geom_type == S.BOX:
         lanes += box_plane_lanes(bp, bq, sc.half, sc.plane_z, sc.plane_mu,
                                  body_sgn=1.0)
         for f in range(2):
             lanes += sat_box_box_lanes(
                 bp, Ra, sc.half, fpos[:, f], Rb7, FINGER_HALF, sc.finger_mu,
-                body_sgn=1.0, finger_idx=f, fin_sgn=-1.0, link=6,
-                arm_sgn=-1.0, ee_sgn=-1.0)
+                finger_idx=f, **pad)
+    elif sc.has_body:
+        # the puck: radius half[0], half length half[2]; the pad is side B
+        lanes += cyl_plane_lanes(bp, bq, sc.half[0], sc.half[2], sc.plane_z,
+                                 sc.plane_mu, body_sgn=1.0)
+        for f in range(2):
+            lanes += box_cyl_lanes(
+                fpos[:, f], Rb7, FINGER_HALF, bp, sc.half[0], sc.half[2],
+                sc.finger_mu, finger_idx=f, **pad)
     for f in range(2):
         lanes += box_plane_lanes(
             fpos[:, f], r7, FINGER_HALF, sc.plane_z, 1.0 * sc.plane_friction,

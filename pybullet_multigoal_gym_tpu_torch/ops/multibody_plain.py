@@ -46,7 +46,7 @@ import torch
 from pybullet_multigoal_gym_tpu_torch.model import kuka_model as KM
 from pybullet_multigoal_gym_tpu_torch.ops import dynamics as D
 from pybullet_multigoal_gym_tpu_torch.ops import engine_plain as EP
-from pybullet_multigoal_gym_tpu_torch.utils.tensors import const
+from pybullet_multigoal_gym_tpu_torch.utils.tensors import const, index
 
 vcross, vdot, qmat, qmul = EP.vcross, EP.vdot, EP.qmat, EP.qmul
 FINGER_MASS = EP.FINGER_MASS
@@ -268,7 +268,7 @@ def build_lanes(sc: D.MultiBodyConsts, ch, bp, bq, R, door_q=None):
     def geoms(sel):
         """Centres, rotation matrices and orientations of geoms ``sel``,
         (N x len(sel), ...), geom-major within each env."""
-        bs = [gb[g] for g in sel]
+        bs = index([gb[g] for g in sel], R)
         return (flat(torch.stack([centre[g] for g in sel], 1)),
                 flat(R[:, bs]), flat(bq[:, bs]))
 
@@ -387,7 +387,7 @@ def build_lanes(sc: D.MultiBodyConsts, ch, bp, bq, R, door_q=None):
         sps = [sp for sp, _ in sel]
         cg, Rg, _ = geoms([g for _, g in sel])
         r = const([radius[sp] for sp in sps], cg)
-        add(_stack(EP.sphere_box_lane(flat(spheres[:, sps]),
+        add(_stack(EP.sphere_box_lane(flat(spheres[:, index(sps, cg)]),
                                       r.expand(N, len(sel)).reshape(-1),
                                       cg, Rg, h, 0.0), N * len(sel)),
             [pos['sphere', sp, g] for sp, g in sel])
@@ -398,7 +398,8 @@ def build_lanes(sc: D.MultiBodyConsts, ch, bp, bq, R, door_q=None):
         sps = [sp for sp, _ in sel]
         r = const([radius[sp] for sp in sps], bp)
         add(_stack(EP.sphere_box_lane(
-            flat(spheres[:, sps]), r.expand(N, len(sel)).reshape(-1),
+            flat(spheres[:, index(sps, bp)]),
+            r.expand(N, len(sel)).reshape(-1),
             flat(boxes([w for _, w in sel])),
             eye.expand(N * len(sel), 3, 3), hw, 0.0), N * len(sel)),
             [pos['s' + w[0], sp, w[1]] for sp, w in sel])

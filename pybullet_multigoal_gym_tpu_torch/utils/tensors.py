@@ -19,6 +19,21 @@ def const(x, like):
     return t
 
 
+_INDEX = {}
+
+
+def index(idx, like):
+    """Integer indices as a long tensor on ``like``'s device, cached per
+    value and device as `const` is: indexing with a Python list copies the
+    list to the device on every call."""
+    key = (tuple(int(i) for i in idx), like.device)
+    t = _INDEX.get(key)
+    if t is None:
+        t = _INDEX[key] = torch.as_tensor(key[0], dtype=torch.long,
+                                          device=like.device)
+    return t
+
+
 def resolve_device(device):
     """``None`` means CUDA; CUDA must then be present. The CPU runs only when
     the caller asks for it."""

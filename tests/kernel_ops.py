@@ -122,13 +122,12 @@ def engine_ops(lib, sc, state, controls, n_substeps):
     rows, ctl_rows = (x.cpu() for x in cuda_engine.pack(state, controls))
     prm = torch.tensor(cuda_engine.scene_params(sc), dtype=torch.float32)
     out = torch.empty_like(rows)
-    ops = lib.engine_count(int(sc.has_body), sc.plane_mask, sc.geom_mask,
-                           rows.data_ptr(), ctl_rows.data_ptr(),
+    key = cuda_engine.scene_key(sc)
+    ops = lib.engine_count(*key, rows.data_ptr(), ctl_rows.data_ptr(),
                            prm.data_ptr(), out.data_ptr(), rows.shape[1],
                            int(n_substeps), sc.solver_iters, _threads())
     if ops == 2 ** 64 - 1:
-        raise ValueError('the kernel library holds no scene %s'
-                         % ((sc.has_body, sc.plane_mask, sc.geom_mask),))
+        raise ValueError('the kernel library holds no scene %s' % (key,))
     cpu_state = state._replace(**{f: getattr(state, f).cpu()
                                   for f in state._fields})
     return int(ops), cuda_engine.unpack(out, cpu_state)

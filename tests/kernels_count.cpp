@@ -154,18 +154,18 @@ extern "C" unsigned long long ik_count(const float* in, float* out, int n,
 
 // Same inputs and outputs as engine_host; returns the operation count over
 // all n environments, or ~0 for a scene the library does not hold.
-extern "C" unsigned long long engine_count(int has_body, int plane_mask,
+extern "C" unsigned long long engine_count(int body, int plane_mask,
                                            int geom_mask, const float* st,
                                            const float* ctl, const float* prm,
                                            float* out, int n, int n_sub,
                                            int iters, int threads) {
     std::vector<Flop> fst = data(st, 34L * n), fctl = data(ctl, 9L * n),
                       fprm = data(prm, kin::N_PARAMS), fout(34L * n);
-#define ENGINE_CASE(HB, PM, GM)                                              \
-    if ((has_body != 0) == HB && plane_mask == PM && geom_mask == GM) {      \
+#define ENGINE_CASE(B, PM, GM)                                               \
+    if (body == B && plane_mask == PM && geom_mask == GM) {                  \
         unsigned long long ops = count_envs(n, threads, [&](int i) {         \
-            kin::engine_env<HB, PM, GM>(fst.data(), fctl.data(), fprm.data(), \
-                                        fout.data(), n, i, n_sub, iters);    \
+            kin::engine_env<B, PM, GM>(fst.data(), fctl.data(), fprm.data(),  \
+                                       fout.data(), n, i, n_sub, iters);     \
         });                                                                  \
         store(fout, out);                                                    \
         return ops;                                                          \

@@ -18,15 +18,15 @@ extern "C" int ik_host(const float* in, float* out, int n, int num_iters,
     return 0;
 }
 
-extern "C" int engine_host(int has_body, int plane_mask, int geom_mask,
+extern "C" int engine_host(int body, int plane_mask, int geom_mask,
                            const float* st, const float* ctl,
                            const float* prm, float* out, int n, int n_sub,
                            int iters) {
-#define ENGINE_CASE(HB, PM, GM)                                           \
-    if ((has_body != 0) == HB && plane_mask == PM && geom_mask == GM) {   \
+#define ENGINE_CASE(B, PM, GM)                                            \
+    if (body == B && plane_mask == PM && geom_mask == GM) {               \
         for (int i = 0; i < n; ++i)                                       \
-            kin::engine_env<HB, PM, GM>(st, ctl, prm, out, n, i, n_sub,   \
-                                        iters);                           \
+            kin::engine_env<B, PM, GM>(st, ctl, prm, out, n, i, n_sub,    \
+                                       iters);                            \
         return 0;                                                         \
     }
     ENGINE_SCENES(ENGINE_CASE)

@@ -1,7 +1,8 @@
 """The port stands alone: importing it and stepping an env of each family
-(reach, and block_rearrange and chest_push on the multi-body engine), and
-resetting a push-primitive env and an insertion env, loads neither JAX nor
-any module of the JAX package,
+(reach, and block_rearrange and chest_push on the multi-body engine),
+resetting a push-primitive env and an insertion env, and resetting and
+stepping slide through `make_env`'s single-env adapter, loads neither JAX
+nor any module of the JAX package,
 and its entry point asks for CUDA unless the caller passes
 ``device='cpu'``."""
 
@@ -49,6 +50,9 @@ istate, iobs = ins.reset()
 ins.core.step_decode_pre(istate, torch.zeros((2, 7)))
 interop.state_to_numpy(istate)
 demonstrator.StepDemonstrator(demonstrator.default_demonstrations(2))
+gym = port.make_env(task='slide', device='cpu')
+gobs = gym.reset()
+gobs, _, _, _ = gym.step(gym.action_space.sample())
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.')
              or m == 'pybullet_multigoal_gym_tpu'
@@ -57,7 +61,8 @@ print(json.dumps({'bad': bad, 'obs': list(obs['observation'].shape),
                   'multi_obs': list(mobs['observation'].shape),
                   'chest_obs': list(cobs['observation'].shape),
                   'prim_obs': list(pobs['observation'].shape),
-                  'ins_obs': list(iobs['observation'].shape)}))
+                  'ins_obs': list(iobs['observation'].shape),
+                  'slide_obs': list(gobs['observation'].shape)}))
 '''
 
 
@@ -75,7 +80,9 @@ def _imported_modules(path):
 @pytest.mark.parametrize('source', ['pybullet_multigoal_gym_tpu_torch',
                                     'chip_smoke.py', 'tests/torch_common.py',
                                     'tests/test_torch_kernels.py',
-                                    'tests/kernel_ops.py'])
+                                    'tests/kernel_ops.py',
+                                    'tests/k2_timing.py',
+                                    'tests/policies.py'])
 def test_sources_name_no_jax(source):
     """No import statement anywhere in the port, the chip smoke test or the
     card tests and their helpers names JAX or the JAX package, including
@@ -98,7 +105,7 @@ def test_port_imports_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res == {'bad': [], 'obs': [2, 3], 'multi_obs': [2, 24],
                    'chest_obs': [2, 44], 'prim_obs': [2, 12],
-                   'ins_obs': [2, 24]}
+                   'ins_obs': [2, 24], 'slide_obs': [20]}
 
 
 def test_default_device_is_cuda():

@@ -52,12 +52,13 @@ from pybullet_multigoal_gym_tpu_torch.ops.cuda_ik import CudaIK
 from pybullet_multigoal_gym_tpu_torch.ops.cuda_multibody import (
     CudaMultiBodyEngine)
 from tests import kernel_ops
-from tests.torch_common import (ARM_FIELDS, BODY_FIELDS, chest_inputs,
-                                cuda, inputs,  # noqa: F401
+from tests.torch_common import (ARM_FIELDS, BODY_FIELDS, SLIDE_KINDS,
+                                chest_inputs, cuda, inputs,  # noqa: F401
                                 insertion_inputs, multi_inputs, n,
-                                noise_bound, plain_run,
-                                primitive_inputs, t, torch_controls,
-                                torch_state, workspace_targets)
+                                noise_bound, plain_run, plain_trajectory,
+                                primitive_inputs, slide_inputs, t,
+                                torch_controls, torch_state,
+                                workspace_targets)
 
 torch.set_num_threads(1)
 
@@ -125,29 +126,55 @@ def test_engine_source_on_host_matches_plain_sphere_plane(host_kernels):
     _engine_host_vs_plain(host_kernels, 'push', 'joint', 'sphere')
 
 
-def _engine_host_vs_plain(host_kernels, task, control, kind):
-    has_obj = task == 'push'
-    sc = D.scene_consts(S.single_step_scene(has_obj),
-                        ik_workspace=control == 'ee')
-    st, ctl = inputs(has_obj, kind, N_HOST, seed=1)
+def slide_scene(kind):
+    """Slide's scene for a stress state of `slide_inputs`: joint control
+    (every arm-sphere lane) for 'sphere', EE control for the rest."""
+    return D.scene_consts(S.single_step_scene(True, 'long_table'),
+                          ik_workspace=kind != 'sphere')
+
+
+@pytest.mark.parametrize('kind', SLIDE_KINDS)
+def test_engine_source_on_host_matches_plain_slide(host_kernels, kind):
+    """The two slide instances (the cylinder branch; EE control and, for
+    the 'sphere' state, joint control), 2 substeps, on slide's stress
+    states; the lane group the state is made for acts."""
+    want = {'tilt': 'cyl-plane', 'strike': 'finger-cyl lateral',
+            'cap': 'finger-cyl vertical', 'sphere': 'sphere-box'}
+    sc = slide_scene(kind)
+    st, ctl = slide_inputs(kind, N_HOST, seed=1)
+    active = _engine_host_vs_plain(host_kernels, 'slide', sc, kind, (st, ctl))
+    if kind in want:
+        assert active[want[kind]] > 0.25, active
+
+
+def _engine_host_vs_plain(host_kernels, task, control, kind, given=None):
+    """K2's host build against its plain version after 2 substeps: the
+    task's scene under ``control`` ('ee' or 'joint', or the scene itself),
+    on ``inputs``' state ``kind`` or on ``given``. Returns the plain run's
+    lane groups' shares."""
+    has_obj = task != 'reach'
+    sc = control if isinstance(control, D.SceneConsts) else D.scene_consts(
+        S.single_step_scene(has_obj), ik_workspace=control == 'ee')
+    st, ctl = given or inputs(has_obj, kind, N_HOST, seed=1)
     st, ctl = torch_state(st), torch_controls(ctl)
     rows, ctl_rows = cuda_engine.pack(st, ctl)
     prm = torch.tensor(cuda_engine.scene_params(sc), dtype=torch.float32)
     out = torch.empty_like(rows)
     assert host_kernels.engine_host(
-        int(sc.has_body), sc.plane_mask, sc.geom_mask, rows.data_ptr(),
+        *cuda_engine.scene_key(sc), rows.data_ptr(),
         ctl_rows.data_ptr(), prm.data_ptr(), out.data_ptr(), N_HOST, 2,
         sc.solver_iters) == 0
     out = cuda_engine.unpack(out, st)
-    ref = EP.control_step(sc, st, ctl, 2)
+    ref, active = plain_run(sc, st, ctl, 2)
     fields = ARM_FIELDS + (BODY_FIELDS if has_obj else ())
     assert env_errors(out, ref, fields).max() <= 2e-3
     np.testing.assert_allclose(n(out.ee_contact_force),
                                n(ref.ee_contact_force), atol=2e-3 / D.DT_SUB)
     if kind == 'contact':
         assert np.abs(n(out.ee_contact_force)).max() > 1.0
-    if kind == 'sphere':
-        assert plain_run(sc, st, ctl, 2)[1]['sphere-plane'] > 0.5
+    if kind == 'sphere' and task != 'slide':
+        assert active['sphere-plane'] > 0.5
+    return active
 
 
 def _multibody_host(host_kernels, sc, st, ctl, n_sub):
@@ -258,7 +285,7 @@ def test_multibody_source_on_host_matches_plain_chest(host_kernels, door,
 
 def _scene_table(name):
     """The instances of a kernel library's scene table macro, as tuples of
-    strings: (has a body, plane mask, body mask) for engine.cu, (bodies,
+    strings: (body, plane mask, body mask) for engine.cu, (bodies,
     geoms, geom bodies, plane mask, geom masks, offset geoms, pinned
     bodies, statics, static masks, door panels, door mask) for K3's
     libraries."""
@@ -272,18 +299,19 @@ def _scene_table(name):
                for args in re.findall(r'X\(([^)]*)\)', table))
 
 
-@pytest.mark.parametrize('task', ['reach', 'push', 'pick_and_place'])
+@pytest.mark.parametrize('task', ['reach', 'push', 'pick_and_place',
+                                  'slide'])
 @pytest.mark.parametrize('joint_control', [False, True])
 def test_engine_library_holds_every_scene(task, joint_control):
-    """The (has a body, plane mask, box mask) of every scene the envs build
-    (ops/lane_cull.py decides the masks) is one `ENGINE_SCENES` instance of
-    engine.cu: a missing one would fail only at launch, on the card."""
-    held = {(hb == 'true', int(pm, 16), int(gm, 16))
-            for hb, pm, gm in _scene_table('engine')}
-    assert len(held) == 4
+    """The (body, plane mask, body mask) of every scene the envs build
+    (`cuda_engine.scene_key`; ops/lane_cull.py decides the masks) is one
+    `ENGINE_SCENES` instance of engine.cu: a missing one would fail only at
+    launch, on the card."""
+    held = {tuple(int(x, 0) for x in key) for key in _scene_table('engine')}
+    assert len(held) == 6
     sc = make_vec_env(num_envs=1, task=task, joint_control=joint_control,
                       device='cpu').core.scene
-    assert (sc.has_body, sc.plane_mask, sc.geom_mask) in held
+    assert cuda_engine.scene_key(sc) in held
 
 
 @pytest.mark.parametrize('task', ['block_rearrange', 'block_stack',
@@ -370,7 +398,7 @@ def test_engine_count_build_runs_the_host_build(host_kernels, count_kernels,
     prm = torch.tensor(cuda_engine.scene_params(sc), dtype=torch.float32)
     out = torch.empty_like(rows)
     assert host_kernels.engine_host(
-        int(sc.has_body), sc.plane_mask, sc.geom_mask, rows.data_ptr(),
+        *cuda_engine.scene_key(sc), rows.data_ptr(),
         ctl_rows.data_ptr(), prm.data_ptr(), out.data_ptr(), 32, 3,
         sc.solver_iters) == 0
     ops, counted = kernel_ops.engine_ops(count_kernels, sc, st, ctl, 3)
@@ -380,6 +408,28 @@ def test_engine_count_build_runs_the_host_build(host_kernels, count_kernels,
     ops1, _ = kernel_ops.engine_ops(count_kernels, sc, st, ctl, 1)
     assert 0 < ops1 < ops
     assert kernel_ops.engine_ops(count_kernels, sc, st, ctl, 0)[0] == 0
+
+
+@pytest.mark.parametrize('kind', ['strike', 'sphere'])
+def test_engine_count_build_runs_the_host_build_slide(host_kernels,
+                                                      count_kernels, kind):
+    """The same for the two slide instances: EE control with the pads
+    striking the puck, joint control with a sphere on its cap."""
+    sc = slide_scene(kind)
+    st, ctl = slide_inputs(kind, 32, seed=1)
+    st, ctl = torch_state(st), torch_controls(ctl)
+    rows, ctl_rows = cuda_engine.pack(st, ctl)
+    prm = torch.tensor(cuda_engine.scene_params(sc), dtype=torch.float32)
+    out = torch.empty_like(rows)
+    assert host_kernels.engine_host(
+        *cuda_engine.scene_key(sc), rows.data_ptr(), ctl_rows.data_ptr(),
+        prm.data_ptr(), out.data_ptr(), 32, 3, sc.solver_iters) == 0
+    ops, counted = kernel_ops.engine_ops(count_kernels, sc, st, ctl, 3)
+    for f in D.PhysicsState._fields:
+        assert torch.equal(getattr(counted, f),
+                           getattr(cuda_engine.unpack(out, st), f)), f
+    ops1, _ = kernel_ops.engine_ops(count_kernels, sc, st, ctl, 1)
+    assert 0 < ops1 < ops
 
 
 @pytest.mark.parametrize('nb', [2, 5])
@@ -515,12 +565,63 @@ def test_engine_kernel_matches_plain(cuda, task, control, kind, n_sub):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('task', ['push', 'reach'])
+@pytest.mark.parametrize('kind', SLIDE_KINDS)
+@pytest.mark.parametrize('n_sub', [2, 100])
+def test_engine_kernel_matches_plain_slide(cuda, kind, n_sub):
+    """The two slide instances (the cylinder branch) on slide's stress
+    states at 4096 envs, each env within its bound as above. In 'strike'
+    and 'cap' the pads ram the puck into the table and a free run of 100
+    substeps forks on the last bit (tests/k2_fork_witness.py), so there
+    the 100 substeps are held one at a time: the kernel's one substep from
+    each state of the plain trajectory within 1e-4 of the plain's next, in
+    every env and substep, or where a contact test sits on its threshold,
+    within the bound of that substep's own 8 noisy plain runs."""
+    sc = slide_scene(kind)
+    st, ctl = slide_inputs(kind, N, seed=1)
+    st, ctl = torch_state(st, cuda), torch_controls(ctl, cuda)
+    w = CudaEngine(sc)
+    fields = ARM_FIELDS + BODY_FIELDS
+    if n_sub == 100 and kind in ('strike', 'cap'):
+        states = plain_trajectory(sc, st, ctl, n_sub)
+
+        def stack(xs):
+            return type(xs[0])(*(torch.cat(f) for f in zip(*xs)))
+
+        big, ctls, nxt = (stack(states[:-1]), stack([ctl] * n_sub),
+                          stack(states[1:]))
+        out = w.control_step(big, ctls, n_substeps=1)
+        assert w.launches == 1
+        err = env_errors(out, nxt, fields)
+        beyond = torch.as_tensor(np.nonzero(err > 1e-4)[0], device=cuda)
+        if len(beyond):
+            def sub(nt):
+                return type(nt)(*(x[beyond] for x in nt))
+
+            bound = n(noise_bound(sc, sub(big), sub(ctls), 1, sub(nxt),
+                                  lambda a, b: env_errors(a, b, fields),
+                                  1e-4)[0])
+            at = n(beyond)
+            assert (err[at] <= bound).all(), (at // N, at % N, err[at],
+                                              bound)
+        return
+    out = w.control_step(st, ctl, n_substeps=n_sub)
+    torch.cuda.synchronize()
+    assert w.launches == 1
+    ref = EP.control_step(sc, st, ctl, n_sub)
+    err = env_errors(out, ref, fields)
+    bound = noise_bound(sc, st, ctl, n_sub, ref,
+                        lambda a, b: env_errors(a, b, fields),
+                        1e-4 if n_sub == 2 else 2e-3)[0]
+    assert (err <= n(bound)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('task', ['push', 'reach', 'slide'])
 @pytest.mark.parametrize('n_sub,tol', [(2, 1e-4), (100, 2e-3)])
 def test_engine_kernel_matches_plain_on_main_path(cuda, task, n_sub, tol):
-    """The control step's inputs at step 26 of a seeded push or reach drive
-    at 4096 envs: every env within 1e-4 after 2 substeps and within 2e-3
-    after the full 100."""
+    """The control step's inputs at step 26 of a seeded push, reach or
+    slide drive at 4096 envs: every env within 1e-4 after 2 substeps and
+    within 2e-3 after the full 100."""
     env = make_vec_env(num_envs=N, task=task, seed=2)
     state, _ = env.reset()
     g = torch.Generator(device=cuda).manual_seed(2)
@@ -535,7 +636,7 @@ def test_engine_kernel_matches_plain_on_main_path(cuda, task, n_sub, tol):
     w = CudaEngine(env.core.scene)
     out = w.control_step(state.phys, ctl, n_substeps=n_sub)
     ref = EP.control_step(env.core.scene, state.phys, ctl, n_sub)
-    fields = ARM_FIELDS + (BODY_FIELDS if task == 'push' else ())
+    fields = ARM_FIELDS + (BODY_FIELDS if task != 'reach' else ())
     assert env_errors(out, ref, fields).max() <= tol
 
 
@@ -718,6 +819,34 @@ def test_multibody_kernel_matches_plain_on_main_path(cuda, n_sub, tol):
                             lambda a, b: env_errors(a, b, fields), tol)[0]
         assert (err <= n(bound)).all()
     assert env.core.engine.launches == 25
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', ['slide', 'blocks'])
+def test_plain_run_graph_matches_eager(cuda, scene):
+    """On the card `plain_run` and `plain_trajectory` replay a CUDA graph of
+    the plain substep: bit for bit the eager control step's answer (K2's on
+    slide's 'strike' state, K3's on the 5-block pile), noisy runs too."""
+    if scene == 'slide':
+        sc, (st, ctl) = slide_scene('strike'), slide_inputs('strike', N)
+        control_step = EP.control_step
+    else:
+        sc = D.multibody_consts(S.multi_step_scene(5), ik_workspace=True)
+        st, ctl = multi_inputs(5, 'contact', N // 4)
+        control_step = MP.control_step
+    st, ctl = torch_state(st, cuda), torch_controls(ctl, cuda)
+    ref = control_step(sc, st, ctl, 5)
+    out, active = plain_run(sc, st, ctl, 5)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref)) and active
+    states = plain_trajectory(sc, st, ctl, 5)
+    assert len(states) == 6
+    assert all(torch.equal(a, b) for a, b in zip(states[-1], ref))
+    assert all(torch.equal(a, b) for a, b in zip(states[2], control_step(
+        sc, states[1], ctl, 1)))
+    a, _ = plain_run(sc, st, ctl, 5, noise_seed=3)
+    b, _ = plain_run(sc, st, ctl, 5, noise_seed=3)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert not all(torch.equal(x, y) for x, y in zip(a, ref))
 
 
 @pytest.mark.cuda

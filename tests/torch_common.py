@@ -171,6 +171,141 @@ def inputs(has_obj, kind, count, seed=0):
     return st, mk_controls(count, st, seed)
 
 
+SLIDE_KINDS = ('drop', 'tilt', 'strike', 'cap', 'coast', 'sphere')
+_PUCK_R, _PUCK_HL, _PUCK_Z = 0.03, 0.01, 0.170
+
+
+@functools.lru_cache(maxsize=None)
+def _q_cap():
+    """An IK solution (numpy, (7,)) for the tip at (-0.52, 0, 0.179): the
+    finger pads' centres 0.05 m above a resting puck's centre, their
+    bottoms 1 mm under its cap."""
+    from pybullet_multigoal_gym_tpu_torch.ops import ik
+    return n(ik.solve(torch.tensor([-0.52, 0.0, 0.179]),
+                      q_init=torch.as_tensor(_Q_LOW)))
+
+
+def _beside_pad(st, rng, count, local):
+    """Puck positions (count, 1, 3) at ``local`` (count, 3) in the frame of
+    a finger pad drawn per env (the pad's rotation is link 7's)."""
+    ch = EP.fk_chain(t(st['q']), t(st['fq']))
+    f = rng.integers(0, 2, count)
+    pad = n(ch['fpos'])[np.arange(count), f]
+    R = n(EP.qmat(ch['r7']))
+    return (pad + np.einsum('nij,nj->ni', R, local)).astype(np.float32)[:, None]
+
+
+def slide_inputs(kind, count, seed=0):
+    """Physics state and controls (numpy) for slide's scene, the puck a
+    cylinder of radius 0.03 and half length 0.01 on the long table:
+    'drop' (the JAX package's own drop state, mk_state), 'tilt' (the puck
+    tilted by up to 0.3 rad and lowered until one to three rim points touch
+    the table), 'strike' (the arm low and moving, the puck beside a finger
+    pad in the pad's frame, up to 3 mm into it and sliding toward it:
+    lateral finger-cylinder lanes), 'cap' (a pad's bottom up to 2 mm into
+    the resting puck's cap: vertical lanes), 'coast' (the puck sliding at
+    1.5 m/s over the mu = 0.05 table, the arm at rest) and 'sphere' (joint
+    control: a wrist or elbow sphere on the puck's cap, which the spheres
+    see as a box)."""
+    rng = np.random.default_rng(seed)
+
+    def u(lo, hi, shape):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    st = mk_state(True, count, seed)
+    if kind == 'drop':
+        return st, mk_controls(count)
+    ctl = mk_controls(count)
+    rest_xy = np.array([-0.5, 0.05], np.float32) + u(-0.02, 0.02, (count, 2))
+    if kind == 'tilt':
+        # rotate about a horizontal axis, then set the centre so that the
+        # lowest rim point lies 0-2 mm under the plane
+        ang = u(0.05, 0.3, (count,))
+        az = u(0.0, 2 * np.pi, (count,))
+        axis = np.stack([np.cos(az), np.sin(az), np.zeros(count)], -1)
+        bq = np.concatenate([np.cos(ang / 2)[:, None],
+                             axis * np.sin(ang / 2)[:, None]], -1)
+        drop = (_PUCK_HL * np.cos(ang) + _PUCK_R * np.sin(ang))
+        z = 0.16 + drop - u(0.0, 0.002, (count,))
+        st.update(body_pos=np.concatenate([rest_xy, z[:, None]], -1)
+                  .astype(np.float32)[:, None],
+                  body_quat=bq.astype(np.float32)[:, None],
+                  body_angvel=u(-0.5, 0.5, (count, 1, 3)))
+    elif kind in ('strike', 'cap'):
+        q0 = _Q_LOW if kind == 'strike' else _q_cap()
+        st.update(q=q0 + u(-0.01, 0.01, (count, 7)),
+                  qd=u(-0.3, 0.3, (count, 7)), fq=u(0.0, 0.035, (count, 2)),
+                  fqd=u(-0.05, 0.05, (count, 2)))
+        if kind == 'strike':
+            # across a side face of the pad, up to 3 mm in, or 1 mm clear
+            side = rng.integers(0, 2, count)
+            sgn = np.where(rng.random(count) < 0.5, -1.0, 1.0)
+            fh = np.asarray(KM.FINGER_HALF_EXTENTS, np.float32)
+            depth = fh[side] + _PUCK_R - u(-0.001, 0.003, (count,))
+            along = u(-1.0, 1.0, (count,)) * fh[1 - side]
+            local = np.zeros((count, 3), np.float32)
+            local[np.arange(count), side] = sgn * depth
+            local[np.arange(count), 1 - side] = along
+            pos = _beside_pad(st, rng, count, local)
+            pos[..., 2] = _PUCK_Z            # resting on the table
+            # sliding toward the pad at up to 0.3 m/s
+            ch = EP.fk_chain(t(st['q']), t(st['fq']))
+            to_pad = n(ch['fpos']).mean(1) - pos[:, 0]
+            to_pad[:, 2] = 0.0
+            to_pad /= np.linalg.norm(to_pad, axis=-1, keepdims=True)
+            st.update(body_pos=pos, body_linvel=(to_pad * u(
+                0.0, 0.3, (count, 1))).astype(np.float32)[:, None])
+        else:
+            local = np.stack([u(-0.01, 0.01, (count,)),
+                              u(-0.004, 0.004, (count,)),
+                              0.04 + _PUCK_HL - u(0.0, 0.002, (count,))], -1)
+            st.update(body_pos=_beside_pad(st, rng, count, local))
+        ctl = mk_controls(count, st, seed)
+    elif kind == 'coast':
+        az = u(0.0, 2 * np.pi, (count,))
+        v = 1.5 * np.stack([np.cos(az), np.sin(az), np.zeros(count)], -1)
+        st.update(body_pos=np.concatenate(
+            [rest_xy, np.full((count, 1), _PUCK_Z, np.float32)], -1)[:, None],
+            body_linvel=v.astype(np.float32)[:, None],
+            body_angvel=np.stack([np.zeros(count), np.zeros(count),
+                                  u(-3.0, 3.0, (count,))], -1)
+            .astype(np.float32)[:, None])
+    elif kind == 'sphere':
+        # a sphere of links 3-5 up to 3 mm into the puck's cap plane, the
+        # puck centred under the lowest one
+        cap = _PUCK_Z + _PUCK_HL
+        q = _sphere_plane_configs(seed, cap)
+        q = q[np.arange(count) % len(q)]
+        ch = EP.fk_chain(t(q), torch.zeros((count, 2)))
+        sph = n(ch['spheres'])
+        low = np.asarray(KM.ARM_SPHERE_LINK) < 6
+        reach = (cap + np.asarray(KM.ARM_SPHERE_RADIUS, np.float32)
+                 - sph[..., 2])
+        reach[:, ~low] = -np.inf
+        k = reach.argmax(1)
+        xy = sph[np.arange(count), k, :2]
+        st.update(q=q, qd=u(-0.02, 0.02, (count, 7)),
+                  body_pos=np.concatenate(
+                      [xy, np.full((count, 1), _PUCK_Z, np.float32)], -1)
+                  .astype(np.float32)[:, None])
+        ctl.update(q_target=st['q'] + u(-0.01, 0.01, (count, 7)),
+                   f_target=st['fq'].copy())
+    else:
+        raise ValueError(kind)
+    return st, ctl
+
+
+def k2_lane_groups(sc, lanes):
+    """The lane group of each lane of a K2 plan (`lane_group`), the
+    cylinder's body lanes named apart: its rim points on the table
+    ('cyl-plane') and per pad a lateral and a vertical lane."""
+    names = [lane_group(l) for l in lanes]
+    if sc.has_body and sc.geom_type == S.CYLINDER:
+        names[:8] = (['cyl-plane'] * 4
+                     + ['finger-cyl lateral', 'finger-cyl vertical'] * 2)
+    return names
+
+
 # block positions of the multi-body 'drop' state (the JAX package's own
 # tests/test_pallas_multibody.py)
 _DROP_BLOCKS = np.array([[-0.50, 0.05, 0.21], [-0.45, -0.05, 0.19],
@@ -254,57 +389,151 @@ def plain_run(sc, st, ctl, n_sub, noise_seed=None):
     ``noise_seed``, every element of the state moves by -1, 0 or +1 ulp
     (seeded) before each substep instead, and no shares are kept: the
     spread of such runs is the plain version's own sensitivity to rounding,
-    which enters a run at every substep."""
-    multi = isinstance(sc, D.MultiBodyConsts)
-    if multi:
-        carry = MP.carry_of(sc, st)
-        groups = [MP.lane_group(l) for l in MP.lane_plan(sc)]
-        # per geom pair of two free bodies its 10 lanes, and the edge lane
-        # of each free geom against each pinned geom
-        pos = MP._plan_positions(sc)
-        pairs = [(pos['pair', p] + j, 'box-box %d-%d' % p)
-                 for p in sc.geom_pairs for j in range(10)]
-        pairs += [(at + 5, 'box-pinned edge') for key, at in pos.items()
-                  if key[0] == 'pinned']
-    else:
-        carry = (st.q, st.qd, st.fq, st.fqd, st.body_pos[:, 0],
-                 st.body_quat[:, 0], st.body_linvel[:, 0],
-                 st.body_angvel[:, 0])
-    g = None if noise_seed is None else torch.Generator(
-        device=st.q.device).manual_seed(noise_seed)
+    which enters a run at every substep. On the card each substep replays
+    a CUDA graph of the eager one (`_graphed`)."""
+    track = noise_seed is None
+    carry, ee, acc = _substeps(sc, _carry_of(sc, st), st.ee_contact_force,
+                               ctl, n_sub, noise_seed, track)
+    out = _state_of(sc, st, carry, ee)
     active = {}
-    ee = st.ee_contact_force
-    for _ in range(n_sub):
-        if g is None:
-            q, _, fq, _, bp, bq, _, _ = carry[:8]
+    if acc is not None:
+        for k, grp in _lane_names(sc, st):
+            active[grp] = active.get(grp, False) | acc[:, k]
+    return out, {k: float(v.float().mean()) for k, v in sorted(active.items())}
+
+
+def plain_trajectory(sc, st, ctl, n_sub):
+    """The plain version's states from ``st`` over ``n_sub`` substeps
+    (`plain_run`'s arithmetic): the state before each substep, and after
+    the last."""
+    states = []
+
+    def keep(carry, ee):
+        states.append(_state_of(sc, st, [x.clone() for x in carry],
+                                ee.clone()))
+
+    carry, ee, _ = _substeps(sc, _carry_of(sc, st), st.ee_contact_force, ctl,
+                             n_sub, visit=keep)
+    keep(carry, ee)
+    return states
+
+
+def _carry_of(sc, st):
+    if isinstance(sc, D.MultiBodyConsts):
+        return MP.carry_of(sc, st)
+    return (st.q, st.qd, st.fq, st.fqd, st.body_pos[:, 0], st.body_quat[:, 0],
+            st.body_linvel[:, 0], st.body_angvel[:, 0])
+
+
+def _state_of(sc, st, carry, ee):
+    if isinstance(sc, D.MultiBodyConsts):
+        return MP.state_of(st, carry, ee)
+    q, qd, fq, fqd, bp, bq, bv, bw = carry
+    return st._replace(q=q, qd=qd, fq=fq, fqd=fqd, body_pos=bp[:, None],
+                       body_quat=bq[:, None], body_linvel=bv[:, None],
+                       body_angvel=bw[:, None], ee_contact_force=ee)
+
+
+def _lane_names(sc, st):
+    """(lane index, group name) of each lane of ``sc``'s plan; K3's box-box
+    lanes also under their geom pair and the box-pinned edge lanes under
+    their own name."""
+    if not isinstance(sc, D.MultiBodyConsts):
+        bq = st.body_quat[:, 0]
+        plan = EP.build_lanes(sc, EP.fk_chain(st.q, st.fq), st.body_pos[:, 0],
+                              bq, EP.qmat(bq) if sc.has_body else None)
+        return list(enumerate(k2_lane_groups(sc, plan)))
+    names = list(enumerate(MP.lane_group(l) for l in MP.lane_plan(sc)))
+    # per geom pair of two free bodies its 10 lanes, and the edge lane of
+    # each free geom against each pinned geom
+    pos = MP._plan_positions(sc)
+    names += [(pos['pair', p] + j, 'box-box %d-%d' % p)
+              for p in sc.geom_pairs for j in range(10)]
+    names += [(at + 5, 'box-pinned edge') for key, at in pos.items()
+              if key[0] == 'pinned']
+    return names
+
+
+def _substep_fn(sc, ctl, track):
+    """One plain substep as a function of the carry's tensors: the next
+    carry, the EE force and, with ``track``, whether each lane acts (N,
+    lanes) at the carry it starts from."""
+    multi = isinstance(sc, D.MultiBodyConsts)
+
+    def fn(*carry):
+        acts = ()
+        if track:
+            q, _, fq, _, bp, bq = carry[:6]
             if multi:
                 act = MP.build_lanes(sc, EP.fk_chain(q, fq), bp, bq,
                                      EP.qmat(bq), *carry[8:9])[3]
-                lanes = [(grp, act[:, k]) for k, grp in enumerate(groups)]
-                lanes += [(name, act[:, k]) for k, name in pairs]
             else:
-                Ra = EP.qmat(bq) if sc.has_body else None
-                lanes = [(lane_group(l), l.active) for l in
-                         EP.build_lanes(sc, EP.fk_chain(q, fq), bp, bq, Ra)]
-            for grp, a in lanes:
-                active[grp] = active.get(grp, False) | (a > 0)
+                plan = EP.build_lanes(sc, EP.fk_chain(q, fq), bp, bq,
+                                      EP.qmat(bq) if sc.has_body else None)
+                act = torch.stack([l.active for l in plan], 1)
+            acts = (act > 0,)
+        if multi:
+            nxt, ee = MP.substep(sc, carry, ctl.q_target, ctl.f_target,
+                                 ctl.door_motor_on, ctl.door_target)
         else:
+            nxt, ee = EP.substep(sc, carry, ctl.q_target, ctl.f_target)
+        return tuple(nxt) + (ee,) + acts
+
+    return fn
+
+
+def _graphed(fn, args):
+    """``fn`` captured once as a CUDA graph on copies of ``args``. Returns
+    a function that copies its arguments in, replays the graph and returns
+    ``fn``'s outputs (the graph's own tensors, which the next call
+    overwrites). A replay launches the kernels an eager call of ``fn``
+    launches, so its answers are the eager ones bit for bit; it spares the
+    host the launch of each of a plain substep's thousands of small
+    operations, which is what bounds an eager plain run on the card."""
+    static = tuple(a.clone() for a in args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*static)         # fills the plain versions' per-device constants
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = fn(*static)
+
+    def run(*new):
+        for s, x in zip(static, new):
+            s.copy_(x)
+        graph.replay()
+        return outs
+
+    run.graph = graph
+    return run
+
+
+def _substeps(sc, carry, ee, ctl, n_sub, noise_seed=None, track=False,
+              visit=None):
+    """``n_sub`` plain substeps from ``carry``: with ``noise_seed`` each
+    element moves by -1, 0 or +1 ulp before each; ``visit(carry, ee)``
+    sees the carry before each. Returns the last carry and EE force, and
+    with ``track`` whether each lane acted in some substep (N, lanes)."""
+    fn = _substep_fn(sc, ctl, track)
+    if carry[0].is_cuda:
+        fn = _graphed(fn, carry)
+    g = None if noise_seed is None else torch.Generator(
+        device=carry[0].device).manual_seed(noise_seed)
+    nc, acc = len(carry), None
+    for _ in range(n_sub):
+        if g is not None:
             carry = tuple(torch.nextafter(x, x + torch.randint(
                 -1, 2, x.shape, generator=g, device=x.device).to(x.dtype))
                 for x in carry)
-        if multi:
-            carry, ee = MP.substep(sc, carry, ctl.q_target, ctl.f_target,
-                                   ctl.door_motor_on, ctl.door_target)
-        else:
-            carry, ee = EP.substep(sc, carry, ctl.q_target, ctl.f_target)
-    if multi:
-        out = MP.state_of(st, carry, ee)
-    else:
-        q, qd, fq, fqd, bp, bq, bv, bw = carry
-        out = st._replace(q=q, qd=qd, fq=fq, fqd=fqd, body_pos=bp[:, None],
-                          body_quat=bq[:, None], body_linvel=bv[:, None],
-                          body_angvel=bw[:, None], ee_contact_force=ee)
-    return out, {k: float(v.float().mean()) for k, v in sorted(active.items())}
+        if visit is not None:
+            visit(carry, ee)
+        outs = fn(*carry)
+        carry, ee = outs[:nc], outs[nc]
+        if track:
+            acc = outs[nc + 1].clone() if acc is None else acc | outs[nc + 1]
+    return tuple(x.clone() for x in carry), ee.clone(), acc
 
 
 def noise_bound(sc, st, ctl, n_sub, ref, errors, tol, runs=8, factor=2.0):
