@@ -20,7 +20,11 @@ auto-reset, and a scripted strike through `make_env`'s single-env adapter
 under joint control) on K1 and K2's cylinder lanes, and the chest tasks
 (chest_push with 4 and 2 blocks at 1024 envs for 60 steps across one
 auto-reset, chest_pick_and_place for 5, its 558-lane joint-control plan for
-one, and a door-opening drive) on K1 and K3's static-wall and door lanes.
+one, and a door-opening drive) on K1 and K3's static-wall and door lanes;
+and with the Robotiq-85 gripper (`gripper='robotiq85'`) push and
+block_rearrange with 2 blocks at 4096 envs for 60 steps across one
+auto-reset, on K1 toward its tip and K2's and K3's Robotiq instances,
+with the JAX package's grasp-and-lift at 1024 copies.
 One JSON line per check or phase, each
 with the ``seconds`` since the line before it; the kernels line, the card's
 name and power limit, and as the last line ``{"ok": true, "device":
@@ -432,6 +436,21 @@ def free_reading(phase, sc, w, c, n_fields, n_sub, tol, **tag):
     return float(e.max())
 
 
+def chaotic_check(phase, sc, w, c, n_fields, n_sub=100, **tag):
+    """A main path whose free run of ``n_sub`` substeps forks on the last
+    bit (the plain version's own noisy runs part by more than the flat
+    bound): every env after 2 substeps (`main_path_check`), then each
+    substep from the plain trajectory's state (`forced_check`), and the
+    free run printed (`free_reading`). Returns the largest gated error and
+    the free run's."""
+    gated = max(main_path_check(phase, sc, w, c, n_fields, substeps=FLAT[:1],
+                                **tag),
+                forced_check(phase, sc, w, c, n_fields, n_sub, **tag))
+    free = free_reading(phase.split('_vs_')[0] + '_free_run_reading', sc, w,
+                        c, n_fields, n_sub, FLAT[1][1], **tag)
+    return gated, free
+
+
 def stress_check(phase, sc, w, st, ctl, n_fields, substeps=FLAT, **tag):
     """A control-step kernel against its plain version on a stress state
     after ``substeps``: each env within the flat bound or SPREAD_FACTOR
@@ -703,7 +722,7 @@ def k3_timing(kernels, count_lib, task, c, n_sub):
 def mangled_scene(key):
     """The template arguments of a K3 instance as they appear in its
     mangled name (ptxas reports per entry function)."""
-    return ('ILi%dELi%dELj%dELi%dELy%dELi%dELi%dELi%dELj%dELi%dELi%dEE'
+    return ('ILi%dELi%dELi%dELj%dELi%dELy%dELi%dELi%dELi%dELj%dELi%dELi%dEE'
             % key)
 
 
@@ -1074,21 +1093,37 @@ def obs_leaves(obs):
     return out
 
 
-def plain_path_check(torch, port, task, state, env, **kw):
+def plain_path_check(torch, port, task, state, env, copies=0, **kw):
     """The kernels' path against the plain path: the first 64 envs of
     ``state`` stepped once on the card and on the CPU; observations within
-    5e-3."""
+    5e-3. With ``copies``, returns instead each env's error and each of
+    that many copies' errors against the CPU's step, the copies stepped on
+    the CPU with 1-ulp noise in every substep
+    (tests/torch_common.py:NoisyEngine): (N,) and (copies, N)."""
+    import numpy as np
     from pybullet_multigoal_gym_tpu_torch import interop
+    from tests.torch_common import NoisyEngine
     leaves = {k: v[:64] for k, v in interop.state_to_numpy(state).items()}
     g = torch.Generator().manual_seed(5)
     action = actions(torch, env, g, (64,))
     obs = {}
-    for dev in ('cuda', 'cpu'):
-        e = port.make_vec_env(num_envs=64, task=task, device=dev, **kw)
-        s = interop.state_from_numpy(leaves, device=dev)
-        _, o, _, _, _ = e.step(s, action.to(dev))
+    for dev, k in (('cuda', 1), ('cpu', 1), ('noisy', copies)):
+        if not k:
+            continue
+        e = port.make_vec_env(num_envs=64 * k, task=task,
+                              device='cuda' if dev == 'cuda' else 'cpu', **kw)
+        if dev == 'noisy':
+            e.core.engine = NoisyEngine(e.core.scene)
+        s = interop.state_from_numpy(
+            {key: np.concatenate([v] * k) for key, v in leaves.items()},
+            device=e.device)
+        _, o, _, _, _ = e.step(s, torch.cat([action] * k).to(e.device))
         obs[dev] = o['observation'].cpu()
-    return float((obs['cuda'] - obs['cpu']).abs().max())
+    err = (obs['cuda'] - obs['cpu']).abs()
+    if not copies:
+        return float(err.max())
+    errs = (obs['noisy'].reshape(copies, 64, -1) - obs['cpu']).abs()
+    return err.amax(1), errs.amax(2)
 
 
 def phase_primitive_main(torch, port):
@@ -1319,13 +1354,10 @@ def phase_slide_k2(kernels, captured, count_lib):
                 worst['ee'] = max(worst['ee'], main_path_check(
                     'k2_vs_plain', sc, w, c, N_FIELDS, **tag))
                 continue
-            worst['joint'] = max(
-                worst['joint'],
-                main_path_check('k2_vs_plain', sc, w, c, N_FIELDS,
-                                substeps=FLAT[:1], **tag),
-                forced_check('k2_vs_plain', sc, w, c, N_FIELDS, 100, **tag))
-            worst['free'] = max(worst['free'], free_reading(
-                'k2_free_run_reading', sc, w, c, N_FIELDS, *FLAT[1], **tag))
+            gated, free = chaotic_check('k2_vs_plain', sc, w, c, N_FIELDS,
+                                        **tag)
+            worst['joint'] = max(worst['joint'], gated)
+            worst['free'] = max(worst['free'], free)
     shares = {}
     for kind in SLIDE_KINDS:
         control = 'joint' if kind == 'sphere' else 'ee'
@@ -1363,11 +1395,12 @@ def phase_slide_k2(kernels, captured, count_lib):
                max_abs_err_joint_free_run=worst['free'], ms=ms,
                call_ms=call_ms, plain_ms=plain_ms, bound_ms=b_ms,
                bound_by=b_by, ops=ops)
-    # the slide instances: engine_kernel<2, ...> (csrc/engine.cu BODY_CYL)
+    # the slide instances: engine_kernel<0, 2, ...> (csrc/engine.cu: the
+    # parallel jaw, BODY_CYL)
     emit('k2_timing', task='slide', inputs='main path, step %d' % c['step'],
          substeps=100, envs=N_ENVS, **res,
          ptxas=[p for p in kernels['engine'].ptxas
-                if 'engine_kernelILi2E' in p['function']])
+                if 'engine_kernelILi0ELi2E' in p['function']])
     return res
 
 
@@ -1486,6 +1519,330 @@ def phase_slide_strike(torch, port):
     return res
 
 
+ROBOTIQ = 'robotiq85'
+# the Robotiq-85's lane groups, each to act in the stress state made for it
+# (tests/torch_common.py:robotiq_inputs)
+ROBOTIQ_K2_MADE_FOR = {'grasp': 'finger-box', 'pad_table': 'finger-plane',
+                       'sphere': 'sphere-plane'}
+ROBOTIQ_K3_MADE_FOR = {'grasp': 'finger-box', 'pile': 'box-box',
+                       'sphere': 'sphere-plane'}
+# robotiq_grasp: copies of the JAX package's grasp-and-lift
+# (tests/test_robotiq.py:95-127), and the blocks' jitter of its second run
+GRASP_ENVS, GRASP_JITTER = 1024, 0.005
+
+
+def robotiq_captures(torch, port):
+    """What K1, K2 and K3 are given on the Robotiq-85's main paths
+    (main_path_inputs, steps 1 and 26 at 4096 envs): push and
+    block_rearrange with 2 blocks under EE control, and push under joint
+    control (K2 only)."""
+    return dict(
+        robotiq_push=main_path_inputs(torch, port, 'push', gripper=ROBOTIQ),
+        robotiq_push_joint=main_path_inputs(torch, port, 'push',
+                                            joint_control=True,
+                                            gripper=ROBOTIQ),
+        robotiq_block_rearrange=main_path_inputs(
+            torch, port, 'block_rearrange', num_block=2, gripper=ROBOTIQ))
+
+
+def phase_robotiq_ik(captured, count_lib):
+    """K1 toward the Robotiq-85's tip (0.18 m out along link 7's z) on its
+    main paths' own inputs, push and block_rearrange at steps 1 and 26,
+    8 iterations, against ops/ik.py:solve within 1e-4; timed on push's
+    step 26 as `phase_ik` times the jaw's. Returns the figures."""
+    import torch
+    from pybullet_multigoal_gym_tpu_torch.ops import ik
+    from pybullet_multigoal_gym_tpu_torch.ops.cuda_ik import CudaIK, pack
+    from tests.kernel_ops import ik_ops
+    w = CudaIK(num_iters=8, gripper=ROBOTIQ)
+    worst = 0.0
+    for task in ('push', 'block_rearrange'):
+        for c in captured['robotiq_' + task]:
+            tg, q, r = c['target'], c['q_init'], c['rest']
+            err = float((w.solve(tg, q_init=q, rest_pose=r)
+                         - ik.solve(tg, q_init=q, rest_pose=r, num_iters=8,
+                                    gripper=ROBOTIQ)).abs().max())
+            emit('k1_vs_plain', inputs='%s main path, step %d' % (
+                task, c['step']), gripper=ROBOTIQ, iters=8, envs=N_ENVS,
+                tol=1e-4, max_abs_err=err)
+            if not err <= 1e-4:
+                raise AssertionError('K1 with the Robotiq tip (%s, step %d) '
+                                     'disagrees with its plain version: %g'
+                                     % (task, c['step'], err))
+            worst = max(worst, err)
+    c = captured['robotiq_push'][-1]
+    tg, q, r = c['target'], c['q_init'], c['rest']
+    packed = pack(tg, rest_pose=r, q_init=q)
+    out = torch.empty((7, N_ENVS), device='cuda')
+    ops, _ = ik_ops(count_lib, tg, q_init=q, rest_pose=r, num_iters=8,
+                    gripper=ROBOTIQ)
+    b_ms, b_by = bound_ms(N_ENVS * (21 + 7) * 4, ops)
+    res = dict(max_abs_err=worst, ms=time_ms(lambda: w.launch(packed, out),
+                                             50),
+               call_ms=time_ms(lambda: w.solve(tg, q_init=q, rest_pose=r),
+                               50),
+               plain_ms=time_ms(lambda: ik.solve(tg, q_init=q, rest_pose=r,
+                                                 num_iters=8,
+                                                 gripper=ROBOTIQ), 3),
+               bound_ms=b_ms, bound_by=b_by, ops=ops)
+    emit('k1_timing', inputs='push main path, step %d' % c['step'],
+         gripper=ROBOTIQ, iters=8, envs=N_ENVS, **res)
+    return res
+
+
+def phase_robotiq_k2(kernels, captured, count_lib):
+    """K2's Robotiq-85 instances against ops/engine_plain.py on the card.
+
+    - push's main path under EE control at 4096 envs: step 26 by
+      `main_path_check` (flat bounds; an env beyond them held to its noise
+      bound, none beyond that). The reset puts the Robotiq's pads 3.5 cm
+      inside the table, and in the first step the table throws the arm up
+      with impulses of thousands of newtons: the plain version's own noisy
+      runs part by more than 2e-3 in a third of the envs, by up to 13. So
+      step 1, and the main path under joint control (every arm-sphere
+      lane) at steps 1 and 26, go through `chaotic_check`: every env after
+      2 substeps, every env-substep of the 100 within 1e-4 from the plain
+      trajectory's state, the free run printed.
+    - the Robotiq stress states (tests/torch_common.py:robotiq_inputs):
+      the pads closing on a block, both fingers driven into their stops,
+      the short pads pressed on the table, a wrist sphere on the table
+      (joint control); `stress_check` (K2's rule) after 2 and 100
+      substeps. Each lane group of ROBOTIQ_K2_MADE_FOR acts in its state.
+
+    Timed on the EE main path's step 26 as push is (`phase_engine`).
+    Returns the figures: the largest error of the EE main path's gated
+    checks, of the joint control's, and of the free runs beside the forced
+    ones."""
+    import torch
+    from pybullet_multigoal_gym_tpu_torch.ops import engine_plain as EP
+    from pybullet_multigoal_gym_tpu_torch.ops.cuda_engine import (CudaEngine,
+                                                                  pack)
+    from tests.kernel_ops import engine_ops
+    from tests.torch_common import (ROBOTIQ_KINDS, robotiq_inputs,
+                                    torch_controls, torch_state)
+    engines, worst = {}, {'ee': 0.0, 'joint': 0.0, 'free': 0.0}
+    for control in ('ee', 'joint'):
+        cs = captured['robotiq_push' + ('_joint' if control == 'joint'
+                                        else '')]
+        sc = cs[0]['scene']
+        w = CudaEngine(sc)
+        engines[control] = sc, w
+        tag = dict(task='push', gripper=ROBOTIQ, control=control)
+        for c in cs:
+            if control == 'ee' and c['step'] > 1:
+                worst['ee'] = max(worst['ee'], main_path_check(
+                    'k2_vs_plain', sc, w, c, N_FIELDS, **tag))
+                continue
+            gated, free = chaotic_check('k2_vs_plain', sc, w, c, N_FIELDS,
+                                        **tag)
+            worst[control] = max(worst[control], gated)
+            worst['free'] = max(worst['free'], free)
+    shares = {}
+    for kind in ROBOTIQ_KINDS:
+        control = 'joint' if kind == 'sphere' else 'ee'
+        sc, w = engines[control]
+        st, ctl = robotiq_inputs(kind, N_ENVS)
+        shares[kind] = stress_check(
+            'k2_vs_plain', sc, w, torch_state(st, 'cuda'),
+            torch_controls(ctl, 'cuda'), N_FIELDS, task='push',
+            gripper=ROBOTIQ, control=control, inputs=kind)
+    acts = {k: shares[k].get(g, 0.0) for k, g in ROBOTIQ_K2_MADE_FOR.items()}
+    emit('k2_robotiq_lanes_active', shares=acts, made_for=ROBOTIQ_K2_MADE_FOR)
+    if not all(v > 0 for v in acts.values()):
+        raise AssertionError('a Robotiq lane group acts in no env of the '
+                             'state made for it: %s' % acts)
+
+    sc, w = engines['ee']
+    c = captured['robotiq_push'][-1]
+    st, ctl = c['phys'], c['controls']
+    rows, ctl_rows = pack(st, ctl)
+    out = torch.empty_like(rows)
+    ops, _ = engine_ops(count_lib, sc, st, ctl, 100)
+    b_ms, b_by = bound_ms(N_ENVS * (34 + 9 + 34) * 4, ops)
+    res = dict(max_abs_err=worst['ee'], max_abs_err_joint=worst['joint'],
+               max_abs_err_free_run=worst['free'],
+               ms=time_ms(lambda: w.launch(rows, ctl_rows, out, 100), 10),
+               call_ms=time_ms(lambda: w.control_step(st, ctl), 10),
+               plain_ms=time_ms(lambda: EP.control_step(sc, st, ctl, 100), 1),
+               bound_ms=b_ms, bound_by=b_by, ops=ops)
+    # the Robotiq push instance: engine_kernel<1, 1, ...> (csrc/engine.cu)
+    emit('k2_timing', task='push', gripper=ROBOTIQ,
+         inputs='main path, step %d' % c['step'], substeps=100, envs=N_ENVS,
+         **res, ptxas=[p for p in kernels['engine'].ptxas
+                       if 'engine_kernelILi1ELi1E' in p['function']])
+    return res
+
+
+def phase_robotiq_k3(kernels, captured, count_lib):
+    """K3's Robotiq-85 instances against ops/multibody_plain.py on the card:
+    block_rearrange's main path with 2 blocks at 4096 envs (step 26 by
+    `main_path_check`; step 1, where the table throws out the pads that
+    the reset put inside it, by `chaotic_check`, as K2's), and the Robotiq
+    stress states with 2 blocks (the
+    pads closing on a block, a pile of two whose top block they squeeze,
+    a wrist sphere on the table under joint control; `stress_check`, K3's
+    rule), each lane group of ROBOTIQ_K3_MADE_FOR acting in its state;
+    timed on step 26 (`k3_timing`). Returns the figures."""
+    from pybullet_multigoal_gym_tpu_torch.ops import dynamics as D
+    from pybullet_multigoal_gym_tpu_torch.ops import scene as S
+    from pybullet_multigoal_gym_tpu_torch.ops.cuda_multibody import (
+        CudaMultiBodyEngine)
+    from tests.torch_common import (robotiq_inputs, torch_controls,
+                                    torch_state)
+    cs = captured['robotiq_block_rearrange']
+    sc = cs[0]['scene']
+    tag = dict(task='block_rearrange', gripper=ROBOTIQ, blocks=2)
+    w = CudaMultiBodyEngine(sc)
+    worst = free = 0.0
+    for c in cs:
+        if c['step'] > 1:
+            worst = max(worst, main_path_check('k3_vs_plain', sc, w, c,
+                                               N_FIELDS, control='ee', **tag))
+            continue
+        gated, f = chaotic_check('k3_vs_plain', sc, w, c, N_FIELDS,
+                                 control='ee', **tag)
+        worst, free = max(worst, gated), max(free, f)
+    shares = {}
+    for kind in ROBOTIQ_K3_MADE_FOR:
+        control = 'joint' if kind == 'sphere' else 'ee'
+        sc2 = D.multibody_consts(S.multi_step_scene(2),
+                                 ik_workspace=control == 'ee',
+                                 gripper=ROBOTIQ)
+        st, ctl = robotiq_inputs(kind, N_ENVS, nb=2)
+        shares[kind] = stress_check(
+            'k3_vs_plain', sc2, CudaMultiBodyEngine(sc2),
+            torch_state(st, 'cuda'), torch_controls(ctl, 'cuda'), N_FIELDS,
+            control=control, inputs=kind, **tag)
+    acts = {k: shares[k].get(g, 0.0) for k, g in ROBOTIQ_K3_MADE_FOR.items()}
+    emit('k3_robotiq_lanes_active', shares=acts, made_for=ROBOTIQ_K3_MADE_FOR)
+    if not all(v > 0 for v in acts.values()):
+        raise AssertionError('a Robotiq lane group acts in no env of the '
+                             'state made for it: %s' % acts)
+    res = k3_timing(kernels, count_lib, 'block_rearrange', cs[-1], 100)
+    return dict(res, max_abs_err=worst, max_abs_err_free_run=free)
+
+
+def phase_robotiq_main(torch, port, k2_call_ms, k3_call_ms):
+    """The Robotiq-85's main paths: push and block_rearrange with 2 blocks
+    at 4096 envs for 60 steps (auto-reset at step 50), timed over steps
+    11-60, with exactly one K1 and one K2 or K3 launch per step and `done`
+    at step 50 only; the kernel's share of the step; then 64 envs of each
+    stepped once on the card and on the CPU from one state
+    (`plain_path_check`): the pads press on the table in much of a drive
+    (the EE target may sit on the table, the pads 2-5 cm below the tip),
+    and one step from one state forks on the last bit in some envs. So
+    each env is held to 5e-3, or where the plain path's own N_NOISE copies
+    with 1-ulp noise in every substep part by more, to SPREAD_FACTOR times
+    their spread; for K3 (block_rearrange) as many envs beyond that,
+    and as far, as a noisy copy lies beyond the others' bound, as
+    `stress_check` allows K3 in block piles. Returns each drive's
+    figures."""
+    from tests.torch_common import spread_bound
+    res = {}
+    for task, kw, k_ms in (('push', {}, k2_call_ms),
+                           ('block_rearrange', dict(num_block=2),
+                            k3_call_ms)):
+        env, state, r = drive(torch, port, task, MAIN_STEPS, seed=0,
+                              gripper=ROBOTIQ, **kw)
+        emit('robotiq_%s_path' % task, card=card_line(), **r)
+        want = dict(ik=MAIN_STEPS, engine=MAIN_STEPS)
+        if not (r['obs_finite'] and r['shapes_ok']
+                and r['done_steps'] == [50] and r['all_done_steps'] == [50]
+                and r['launches'] == want
+                and r['launches_per_step'] == dict(ik=[1], engine=[1])):
+            raise AssertionError('Robotiq %s path check failed: %s'
+                                 % (task, r))
+        step_ms = 1e3 * N_ENVS / r['env_steps_per_s']
+        emit('robotiq_step_breakdown', task=task, gripper=ROBOTIQ,
+             envs=N_ENVS, step_ms=step_ms, kernel_call_ms=k_ms,
+             kernel_share=k_ms / step_ms, card=card_line())
+        err, errs = plain_path_check(torch, port, task, state, env,
+                                     copies=N_NOISE, gripper=ROBOTIQ,
+                                     **kw)
+        bound, spread, allowed, cap = spread_bound(errs, 5e-3, SPREAD_FACTOR)
+        if task == 'push':      # K2's rule: no env beyond its bound
+            allowed, cap = 0, 1.0
+        share = err / bound
+        beyond = torch.nonzero(share > 1).flatten()
+        emit('robotiq_%s_vs_plain' % task, task=task, gripper=ROBOTIQ,
+             envs=64, steps=1, max_abs_err_obs=float(err.max()), tol=5e-3,
+             envs_beyond_tol=int((err > 5e-3).sum()),
+             plain_noise_envs_beyond_tol=int((spread > 5e-3).sum()),
+             plain_noise_max_spread=float(spread.max()),
+             envs_beyond_allowed=allowed, share_allowed=cap,
+             max_share_of_env_bound=float(share.max()),
+             envs_beyond_env_bound=int(beyond.numel()))
+        if beyond.numel() > allowed or share.max() > cap:
+            raise AssertionError(
+                'Robotiq %s: the kernel path disagrees with the plain path '
+                'in envs %s: %s against %s (%d envs and a share of %g '
+                'allowed)' % (task, beyond.tolist(), err[beyond].tolist(),
+                              bound[beyond].tolist(), allowed, cap))
+        res[task] = r
+    return res
+
+
+def phase_robotiq_grasp(torch, port):
+    """The JAX package's `test_robotiq_grasps_and_lifts_block` on the card,
+    through the push env's K2 wrapper at GRASP_ENVS copies of its state:
+    the tip 35 mm above a block on the table, the pads open, closed toward
+    0.804 for 2 control steps (every env's pads stall on the block at
+    0.5-0.62 rad), then the arm's target 6 cm higher for 3 (every block
+    above 0.21 m). Then the same with each block moved by up to
+    GRASP_JITTER in x and y: the share of envs that hold both is printed,
+    not held."""
+    from pybullet_multigoal_gym_tpu_torch.model import kuka_model as KM
+    from pybullet_multigoal_gym_tpu_torch.ops import dynamics as D
+    from pybullet_multigoal_gym_tpu_torch.ops import ik
+    env = port.make_vec_env(num_envs=GRASP_ENVS, task='push', gripper=ROBOTIQ)
+    eng = env.core.engine
+    q_init = torch.tensor(KM.KUKA_REST_POSE, dtype=torch.float32)
+    q0 = ik.solve(torch.tensor([-0.52, 0.0, 0.175 + 0.035]), q_init=q_init,
+                  gripper=ROBOTIQ)
+    q_up = ik.solve(torch.tensor([-0.52, 0.0, 0.175 + 0.095]), q_init=q0,
+                    gripper=ROBOTIQ)
+    g = torch.Generator(device='cuda').manual_seed(3)
+    out = {}
+    for name, jitter in (('exact', 0.0), ('jittered', GRASP_JITTER)):
+        bp = torch.tensor([-0.52, 0.0, 0.175], device='cuda').expand(
+            GRASP_ENVS, 1, 3).clone()
+        bp[..., :2] += jitter * (2 * torch.rand((GRASP_ENVS, 1, 2),
+                                                generator=g,
+                                                device='cuda') - 1)
+        st = D.init_state(GRASP_ENVS, q=q0.cuda(), body_pos=bp, fq=0.0,
+                          device='cuda')
+        ctl = D.Controls(
+            q_target=q0.cuda().expand(GRASP_ENVS, 7),
+            f_target=torch.full((GRASP_ENVS, 2), 0.804, device='cuda'),
+            door_motor_on=torch.zeros(GRASP_ENVS, dtype=torch.bool,
+                                      device='cuda'),
+            door_target=torch.zeros(GRASP_ENVS, device='cuda'))
+        eng.launches = 0
+        for _ in range(2):
+            st = eng.control_step(st, ctl)
+        fq = st.fq[:, 0]
+        stalled = (fq > 0.5) & (fq < 0.62)
+        ctl = ctl._replace(q_target=q_up.cuda().expand(GRASP_ENVS, 7))
+        for _ in range(3):
+            st = eng.control_step(st, ctl)
+        z = st.body_pos[:, 0, 2]
+        lifted = (z > 0.21) & torch.isfinite(st.body_pos).all(-1).all(-1)
+        out[name] = dict(
+            stalled_share=float(stalled.float().mean()),
+            lifted_share=float(lifted.float().mean()),
+            held_share=float((stalled & lifted).float().mean()),
+            fq_range=[float(fq.min()), float(fq.max())],
+            z_range=[float(z.min()), float(z.max())],
+            launches=eng.launches)
+    emit('robotiq_grasp', envs=GRASP_ENVS, jitter=GRASP_JITTER,
+         card=card_line(), **out)
+    exact = out['exact']
+    if not (exact['held_share'] == 1.0 and exact['launches'] == 5):
+        raise AssertionError('the Robotiq grasp-and-lift failed on the card: '
+                             '%s' % out)
+    return out
+
+
 def phase_main(torch, port):
     """The main path: push@4096 for 60 steps (auto-reset at step 50), then
     the same 64 envs stepped once on the card and on the CPU from one state,
@@ -1556,6 +1913,7 @@ def main():
     captured['slide'] = main_path_inputs(torch, port, 'slide')
     # K1 does not run under joint control: K2's checks only
     slide_joint = main_path_inputs(torch, port, 'slide', joint_control=True)
+    captured.update(robotiq_captures(torch, port))
     ik_res = phase_ik(captured, count_lib)
     eng_res = phase_engine(kernels, captured, count_lib)
     main_res = phase_main(torch, port)
@@ -1567,6 +1925,13 @@ def main():
                               count_lib)
     slide_res = phase_slide_main(torch, port, slide_k2['call_ms'])
     phase_slide_strike(torch, port)
+    # the Robotiq-85's main paths, before the chest's larger stacks
+    rq_k1 = phase_robotiq_ik(captured, count_lib)
+    rq_k2 = phase_robotiq_k2(kernels, captured, count_lib)
+    rq_k3 = phase_robotiq_k3(kernels, captured, count_lib)
+    rq_main = phase_robotiq_main(torch, port, rq_k2['call_ms'],
+                                 rq_k3['call_ms'])
+    phase_robotiq_grasp(torch, port)
     # the chest last: its kernels' larger stacks grow the runtime's
     # per-thread local memory for every later launch
     chest_k3 = phase_chest_k3(torch, port, kernels, count_lib)
@@ -1597,7 +1962,8 @@ def main():
              launches=launches['ik'], max_abs_err=k1['max_abs_err'],
              ms=k1['ms'], plain_ms=k1['plain_ms'], bound_ms=k1['bound_ms'],
              bound_by=k1['bound_by'], library_ms=None,
-             insertion=entry(k1['insertion'], ins_launches['ik'])),
+             insertion=entry(k1['insertion'], ins_launches['ik']),
+             robotiq=entry(rq_k1, rq_main['push']['launches']['ik'])),
         dict(name='K2 fused control step (push, 100 substeps)', route='cuda',
              source='pybullet_multigoal_gym_tpu_torch/csrc/engine.cu',
              replaces='pybullet_multigoal_gym_tpu/ops/pallas_engine.py:497',
@@ -1610,7 +1976,12 @@ def main():
              slide=dict(entry(slide_k2, slide_res['launches']['engine']),
                         max_abs_err_joint=slide_k2['max_abs_err_joint'],
                         max_abs_err_joint_free_run=slide_k2[
-                            'max_abs_err_joint_free_run'])),
+                            'max_abs_err_joint_free_run']),
+             robotiq=dict(entry(rq_k2,
+                                rq_main['push']['launches']['engine']),
+                          max_abs_err_joint=rq_k2['max_abs_err_joint'],
+                          max_abs_err_free_run=rq_k2[
+                              'max_abs_err_free_run'])),
         dict(name='K3 fused multi-body control step (block_rearrange, 2 '
                   'blocks, 100 substeps)', route='cuda',
              source='pybullet_multigoal_gym_tpu_torch/csrc/multibody.cu',
@@ -1622,6 +1993,9 @@ def main():
              plain_ms=k3['plain_ms'], bound_ms=k3['bound_ms'],
              bound_by=k3['bound_by'], library_ms=None,
              insertion=entry(mb_res['insertion'], ins_launches['engine']),
+             robotiq=dict(entry(rq_k3, rq_main['block_rearrange'][
+                 'launches']['engine']),
+                 max_abs_err_free_run=rq_k3['max_abs_err_free_run']),
              chest=entry(chest_k3, chest_res[4]['launches']['engine'])),
     ]}), flush=True)
     print(card_line(), flush=True)

@@ -9,16 +9,16 @@
 // panels) with 1-5 blocks, each with the arm-sphere lanes of end-effector
 // control (ops/lane_cull.py) and with every sphere lane (joint control).
 #define CHEST_PICK_SCENES(X)                                                \
-    X(1, 1, 0x0, 0x40, 0x7c, 0x0, 0x0, 4, 0xe1c3870, 2, 0x70)               \
-    X(2, 2, 0x10, 0x40, 0x3e7c, 0x0, 0x0, 4, 0xe1c3870, 2, 0x70)            \
-    X(3, 3, 0x210, 0x40, 0x1f3e7c, 0x0, 0x0, 4, 0xe1c3870, 2, 0x70)         \
-    X(4, 4, 0x3210, 0x40, 0xf9f3e7c, 0x0, 0x0, 4, 0xe1c3870, 2, 0x70)       \
-    X(5, 5, 0x43210, 0x40, 0x7cf9f3e7c, 0x0, 0x0, 4, 0xe1c3870, 2, 0x70)    \
-    X(1, 1, 0x0, 0x7f, 0x7f, 0x0, 0x0, 4, 0xfffffff, 2, 0x7f)               \
-    X(2, 2, 0x10, 0x7f, 0x3fff, 0x0, 0x0, 4, 0xfffffff, 2, 0x7f)            \
-    X(3, 3, 0x210, 0x7f, 0x1fffff, 0x0, 0x0, 4, 0xfffffff, 2, 0x7f)         \
-    X(4, 4, 0x3210, 0x7f, 0xfffffff, 0x0, 0x0, 4, 0xfffffff, 2, 0x7f)       \
-    X(5, 5, 0x43210, 0x7f, 0x7ffffffff, 0x0, 0x0, 4, 0xfffffff, 2, 0x7f)
+    X(0, 1, 1, 0x0, 0x40, 0x7c, 0x0, 0x0, 4, 0xe1c3870, 2, 0x70)            \
+    X(0, 2, 2, 0x10, 0x40, 0x3e7c, 0x0, 0x0, 4, 0xe1c3870, 2, 0x70)         \
+    X(0, 3, 3, 0x210, 0x40, 0x1f3e7c, 0x0, 0x0, 4, 0xe1c3870, 2, 0x70)      \
+    X(0, 4, 4, 0x3210, 0x40, 0xf9f3e7c, 0x0, 0x0, 4, 0xe1c3870, 2, 0x70)    \
+    X(0, 5, 5, 0x43210, 0x40, 0x7cf9f3e7c, 0x0, 0x0, 4, 0xe1c3870, 2, 0x70) \
+    X(0, 1, 1, 0x0, 0x7f, 0x7f, 0x0, 0x0, 4, 0xfffffff, 2, 0x7f)            \
+    X(0, 2, 2, 0x10, 0x7f, 0x3fff, 0x0, 0x0, 4, 0xfffffff, 2, 0x7f)         \
+    X(0, 3, 3, 0x210, 0x7f, 0x1fffff, 0x0, 0x0, 4, 0xfffffff, 2, 0x7f)      \
+    X(0, 4, 4, 0x3210, 0x7f, 0xfffffff, 0x0, 0x0, 4, 0xfffffff, 2, 0x7f)    \
+    X(0, 5, 5, 0x43210, 0x7f, 0x7ffffffff, 0x0, 0x0, 4, 0xfffffff, 2, 0x7f)
 
 #ifdef __CUDACC__
 // Launch the scene's kernel on `stream`. Returns cudaErrorInvalidValue for a

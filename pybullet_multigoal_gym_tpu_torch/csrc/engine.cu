@@ -3,23 +3,25 @@
 //
 // Replaces pybullet_multigoal_gym_tpu/ops/pallas_engine.py:_build_kernel
 // (launched through PallasEngine.control_step) for the no-object scene, the
-// one-free-box scene and the one-free-cylinder scene (slide's puck). Same
-// physics as ops/engine_plain.py, the plain PyTorch version it is checked
-// against: arm and finger servos, gravity, FK, the contact lanes (box-plane
-// corners or the cylinder's 4 rim points, finger-box SAT manifolds or the
-// finger-cylinder lateral and vertical lanes, finger-plane corners, the
-// arm-sphere lanes kept by ops/lane_cull.py, which see the cylinder as a
-// box; their geometry is in lanes.cuh, shared with K3), an 8-iteration
-// mass-splitting Jacobi solve with Baumgarte bias and a friction clamp,
-// frozen-arm joint coupling, integration and the EE contact-force readback.
+// one-free-box scene and the one-free-cylinder scene (slide's puck), with the
+// parallel-jaw gripper or the Robotiq-85 (the pads' kinematics and the finger
+// constants: kin.cuh's finger_frames and Grip). Same physics as
+// ops/engine_plain.py, the plain PyTorch version it is checked against: arm
+// and finger servos, gravity, FK, the contact lanes (box-plane corners or the
+// cylinder's 4 rim points, finger-box SAT manifolds or the finger-cylinder
+// lateral and vertical lanes, finger-plane corners, the arm-sphere lanes kept
+// by ops/lane_cull.py, which see the cylinder as a box; their geometry is in
+// lanes.cuh, shared with K3), an 8-iteration mass-splitting Jacobi solve with
+// Baumgarte bias and a friction clamp, frozen-arm joint coupling, integration
+// and the EE contact-force readback.
 //
 // Design. As on the TPU, the state stays on chip for the whole control step:
 // nothing goes back to device memory between substeps. The state and
 // controls are read once, as SoA (rows, n) arrays so that neighbouring
 // threads read neighbouring addresses, and the state is written once. The
-// scene is a template (its body: none, a box or a cylinder; which arm
-// spheres keep a plane / a body lane), so the lane list is static, like the
-// Python-built Pallas kernel.
+// scene is a template (the gripper; its body: none, a box or a cylinder;
+// which arm spheres keep a plane / a body lane), so the lane list is
+// static, like the Python-built Pallas kernel.
 // The lane arrays (about 40 floats per lane, 33 lanes for push) do not fit
 // in registers and live in per-thread local memory, which the L1/L2 caches
 // hold at these sizes.
@@ -90,7 +92,7 @@ struct Lanes {
 };
 
 // One environment, n_sub substeps.
-template <int BODY, int PLANE_MASK, int GEOM_MASK>
+template <int GRIP, int BODY, int PLANE_MASK, int GEOM_MASK>
 KDEV void engine_env(const float* __restrict__ st, const float* __restrict__ ctl,
                      const float* __restrict__ prm, float* __restrict__ out,
                      int n, int i, int n_sub, int iters) {
@@ -102,7 +104,8 @@ KDEV void engine_env(const float* __restrict__ st, const float* __restrict__ ctl
     const float half[3] = {prm[P_HX], prm[P_HY], prm[P_HZ]};
     const float inv_I[3] = {prm[P_IIX], prm[P_IIY], prm[P_IIZ]};
     const float erp_dt = prm[P_ERP_DT], slop = prm[P_SLOP];
-    const float fhalf[3] = {FINGER_HALF[0], FINGER_HALF[1], FINGER_HALF[2]};
+    using G = Grip<GRIP>;
+    const float fhalf[3] = {G::half(0), G::half(1), G::half(2)};
 
     float q[7], qd[7], qt[7], fq[2], fqd[2], ft[2];
 #pragma unroll
@@ -147,20 +150,14 @@ KDEV void engine_env(const float* __restrict__ st, const float* __restrict__ ctl
         for (int j = 0; j < 7; ++j) z[j] = qrotate(r[j], V3{0.0f, 0.0f, 1.0f});
         Q4 r7 = r[6];
         M3 Rb7 = qmat(r7);
-        V3 gbase = o[6] + qrotate(r7, load3(GRIPPER_BASE_OFFSET));
         V3 fpos[2], faxis[2];
-#pragma unroll
-        for (int f = 0; f < 2; ++f) {
-            V3 ax = load3(FINGER_AXIS[f]);
-            fpos[f] = gbase + qrotate(r7, load3(FINGER_ORIGIN[f]) + ax * fq[f]);
-            faxis[f] = qrotate(r7, ax);
-        }
+        finger_frames<GRIP>(o[6], r7, fq, fpos, faxis);
         // 3. finger servo
 #pragma unroll
         for (int f = 0; f < 2; ++f) {
             float v_des = clampf(ARM_SERVO_RATE * (ft[f] - fq[f]),
-                                 -FINGER_VEL_LIMIT, FINGER_VEL_LIMIT);
-            float dv = FINGER_PD_FORCE * DT / FINGER_MASS;
+                                 -G::vel_limit(), G::vel_limit());
+            float dv = G::force() * DT / G::mass();
             fqd[f] = fqd[f] + clampf(v_des - fqd[f], -dv, dv);
         }
         // 4. gravity
@@ -283,7 +280,7 @@ KDEV void engine_env(const float* __restrict__ st, const float* __restrict__ ctl
                 float k = 0.0f;
                 if (fi >= 0) {
                     float da = dot(d, lax[l]);
-                    k = (da * da / FINGER_MASS) * lfc[l];
+                    k = (da * da / G::mass()) * lfc[l];
                 }
                 if (ls.cpl[l] > 0.0f) {
                     // arm yields: J_j . d = z_j . ((p - o_j) x d)
@@ -341,7 +338,7 @@ KDEV void engine_env(const float* __restrict__ st, const float* __restrict__ ctl
                     sum_ang = sum_ang + cross(r_a[l], imp_b);
                 }
                 if (fi >= 0)
-                    dfq[fi] = dfq[fi] + dot(imp, lax[l]) * ls.fsg[l] / FINGER_MASS;
+                    dfq[fi] = dfq[fi] + dot(imp, lax[l]) * ls.fsg[l] / G::mass();
             }
             if (HAS_BODY) {
                 bv_ = bv_ + sum_imp * inv_mass;
@@ -392,9 +389,9 @@ KDEV void engine_env(const float* __restrict__ st, const float* __restrict__ ctl
         }
 #pragma unroll
         for (int f = 0; f < 2; ++f) {
-            fq[f] = clampf(fq[f] + fqd_[f] * DT, -FINGER_LIMIT, FINGER_LIMIT);
-            fqd[f] = ((fq[f] >= FINGER_LIMIT && fqd_[f] > 0.0f) ||
-                      (fq[f] <= -FINGER_LIMIT && fqd_[f] < 0.0f))
+            fq[f] = clampf(fq[f] + fqd_[f] * DT, G::lo(), G::hi());
+            fqd[f] = ((fq[f] >= G::hi() && fqd_[f] > 0.0f) ||
+                      (fq[f] <= G::lo() && fqd_[f] < 0.0f))
                          ? 0.0f : fqd_[f];
         }
     }
@@ -420,38 +417,41 @@ KDEV void engine_env(const float* __restrict__ st, const float* __restrict__ ctl
 
 }  // namespace kin
 
-// The scenes this library holds, as (body, plane mask, body mask): reach,
-// push (pick_and_place) and slide with the arm-sphere lanes of
-// end-effector control, and each with every sphere lane (joint control).
-#define ENGINE_SCENES(X) \
-    X(0, 0x40, 0x00) X(1, 0x40, 0x60) X(0, 0x7f, 0x00) X(1, 0x7f, 0x7f) \
-    X(2, 0x40, 0x78) X(2, 0x7f, 0x7f)
+// The scenes this library holds, as (gripper, body, plane mask, body mask):
+// reach, push (pick_and_place) and slide with the arm-sphere lanes of
+// end-effector control, and each with every sphere lane (joint control),
+// with the parallel jaw and then with the Robotiq-85.
+#define ENGINE_SCENES(X)                                                    \
+    X(0, 0, 0x40, 0x00) X(0, 1, 0x40, 0x60) X(0, 0, 0x7f, 0x00)             \
+    X(0, 1, 0x7f, 0x7f) X(0, 2, 0x40, 0x78) X(0, 2, 0x7f, 0x7f)             \
+    X(1, 0, 0x40, 0x00) X(1, 1, 0x40, 0x60) X(1, 0, 0x7f, 0x00)             \
+    X(1, 1, 0x7f, 0x7f) X(1, 2, 0x40, 0x78) X(1, 2, 0x7f, 0x7f)
 
 #ifdef __CUDACC__
-template <int BODY, int PLANE_MASK, int GEOM_MASK>
+template <int GRIP, int BODY, int PLANE_MASK, int GEOM_MASK>
 __global__ void __launch_bounds__(32)
 engine_kernel(const float* __restrict__ st, const float* __restrict__ ctl,
               const float* __restrict__ prm, float* __restrict__ out, int n,
               int n_sub, int iters) {
     int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i < n)
-        kin::engine_env<BODY, PLANE_MASK, GEOM_MASK>(st, ctl, prm, out, n, i,
-                                                      n_sub, iters);
+        kin::engine_env<GRIP, BODY, PLANE_MASK, GEOM_MASK>(st, ctl, prm, out,
+                                                            n, i, n_sub, iters);
 }
 
 // Launch the scene's kernel on `stream`. Returns cudaErrorInvalidValue for a
 // scene this library does not hold, else cudaGetLastError() after the launch.
-extern "C" int engine_launch(int body, int plane_mask, int geom_mask,
+extern "C" int engine_launch(int grip, int body, int plane_mask, int geom_mask,
                              const float* st, const float* ctl,
                              const float* prm, float* out, int n, int n_sub,
                              int iters, void* stream) {
     if (n == 0) return 0;
     dim3 grid((n + 31) / 32), block(32);
     cudaStream_t s = (cudaStream_t)stream;
-#define ENGINE_CASE(B, PM, GM)                                               \
-    if (body == B && plane_mask == PM && geom_mask == GM) {                  \
-        engine_kernel<B, PM, GM><<<grid, block, 0, s>>>(st, ctl, prm, out,   \
-                                                        n, n_sub, iters);    \
+#define ENGINE_CASE(G, B, PM, GM)                                            \
+    if (grip == G && body == B && plane_mask == PM && geom_mask == GM) {     \
+        engine_kernel<G, B, PM, GM><<<grid, block, 0, s>>>(                  \
+            st, ctl, prm, out, n, n_sub, iters);                             \
         return (int)cudaGetLastError();                                      \
     }
     ENGINE_SCENES(ENGINE_CASE)

@@ -74,6 +74,23 @@ constexpr float ARM_VEL_LIMIT = 10.0f;
 constexpr float FINGER_VEL_LIMIT = 0.2f;
 constexpr float BIAS_CAP = 0.15f;
 
+// the Robotiq-85 (model/kuka_model.py:105-163): the mimic linkage's
+// lengths in the gripper base's plane, the base's offset along link 7's z,
+// the pad box's half extents in link 7's axes, and the closure DoF's range,
+// reflected inertia (kg m^2), drive and velocity limit
+KTABLE float ROBOTIQ_PAD_HALF[3] = {0.011, 0.0055, 0.018};
+constexpr float ROBOTIQ_INNER_X = 0.06142f;
+constexpr float ROBOTIQ_INNER_Y = 0.0127f;
+constexpr float ROBOTIQ_ARM_TX = 0.04303959807f;
+constexpr float ROBOTIQ_ARM_TY = 0.03759940821f;
+constexpr float ROBOTIQ_TAB_X = 0.05f;
+constexpr float ROBOTIQ_TAB_Y = 0.0075f;
+constexpr float ROBOTIQ_BASE_Z = 0.045f;
+constexpr float ROBOTIQ_JOINT_LIMIT = 0.804f;
+constexpr float ROBOTIQ_FINGER_INERTIA = 0.006241079977051787f;
+constexpr float ROBOTIQ_PD_FORCE = 50.0f;
+constexpr float ROBOTIQ_VEL_LIMIT = 2.0f;
+
 // ---------------------------------------------------------------- algebra
 struct V3 { float x, y, z; };
 struct Q4 { float w, x, y, z; };
@@ -157,6 +174,67 @@ KDEV void link_frames(const float q[7], V3 o[7], Q4 r[7]) {
         rr = qmul(rr, Q4{cosf(h), 0.0f, 0.0f, sinf(h)});
         o[j] = p;
         r[j] = rr;
+    }
+}
+
+// ---------------------------------------------------------------- gripper
+// The gripper is the first template integer of K2 and K3.
+enum { GRIP_JAW = 0, GRIP_ROBOTIQ = 1 };
+
+// A gripper's finger constants (ops/dynamics.py:finger_consts): the pad
+// box's half extents, the finger DoF's inertia (kg for the jaw's slide,
+// kg m^2 about the Robotiq's closure angle), its drive, velocity limit and
+// joint range.
+template <int GRIP> struct Grip {
+    static KDEV float half(int k) { return FINGER_HALF[k]; }
+    static KDEV float mass() { return FINGER_MASS; }
+    static KDEV float force() { return FINGER_PD_FORCE; }
+    static KDEV float vel_limit() { return FINGER_VEL_LIMIT; }
+    static KDEV float lo() { return -FINGER_LIMIT; }
+    static KDEV float hi() { return FINGER_LIMIT; }
+};
+template <> struct Grip<GRIP_ROBOTIQ> {
+    static KDEV float half(int k) { return ROBOTIQ_PAD_HALF[k]; }
+    static KDEV float mass() { return ROBOTIQ_FINGER_INERTIA; }
+    static KDEV float force() { return ROBOTIQ_PD_FORCE; }
+    static KDEV float vel_limit() { return ROBOTIQ_VEL_LIMIT; }
+    static KDEV float lo() { return 0.0f; }
+    static KDEV float hi() { return ROBOTIQ_JOINT_LIMIT; }
+};
+
+// The pad box centres fpos and the pads' velocity per unit finger rate
+// faxis, from link 7's origin o7 and rotation r7 and the finger joints fq
+// (pallas_engine.py:fk_chain, :149-165). The parallel jaw's pads slide
+// along their unit axes from the gripper base. The Robotiq's hang from
+// link 7's origin on the parallelogram linkage; their velocity carries
+// m/rad and is not a unit vector. The sums run in the Pallas kernel's
+// order, as ops/fk.py:robotiq_pads has them.
+template <int GRIP>
+KDEV void finger_frames(V3 o7, Q4 r7, const float fq[2], V3 fpos[2],
+                        V3 faxis[2]) {
+    if constexpr (GRIP == GRIP_ROBOTIQ) {
+#pragma unroll
+        for (int f = 0; f < 2; ++f) {
+            float s = f == 0 ? 1.0f : -1.0f;
+            float ct = cosf(fq[f]), st = sinf(fq[f]);
+            float pad_x = ROBOTIQ_INNER_X + ROBOTIQ_ARM_TX * ct +
+                          ROBOTIQ_ARM_TY * st + ROBOTIQ_TAB_X + ROBOTIQ_BASE_Z;
+            float pad_y = s * (ROBOTIQ_INNER_Y + ROBOTIQ_ARM_TY * ct -
+                               ROBOTIQ_ARM_TX * st - ROBOTIQ_TAB_Y +
+                               ROBOTIQ_PAD_HALF[1]);
+            float dx = -ROBOTIQ_ARM_TX * st + ROBOTIQ_ARM_TY * ct;
+            float dy = -s * (ROBOTIQ_ARM_TX * ct + ROBOTIQ_ARM_TY * st);
+            fpos[f] = o7 + qrotate(r7, V3{0.0f, pad_y, pad_x});
+            faxis[f] = qrotate(r7, V3{0.0f, dy, dx});
+        }
+    } else {
+        V3 gbase = o7 + qrotate(r7, load3(GRIPPER_BASE_OFFSET));
+#pragma unroll
+        for (int f = 0; f < 2; ++f) {
+            V3 ax = load3(FINGER_AXIS[f]);
+            fpos[f] = gbase + qrotate(r7, load3(FINGER_ORIGIN[f]) + ax * fq[f]);
+            faxis[f] = qrotate(r7, ax);
+        }
     }
 }
 

@@ -2,58 +2,58 @@
 // bodies, static boxes and a prismatic door (n_substeps velocity-level 2 ms
 // substeps) fused into one launch, one thread per environment. The kernel
 // template; its instances are in multibody.cu (the scenes without a chest),
-// chest_push.cu and chest_pick.cu (the chest tasks), each built into its own
-// library.
+// chest_push.cu and chest_pick.cu (the chest tasks) and multibody_robotiq.cu
+// (the block scenes with the Robotiq-85), each built into its own library.
 //
 // Replaces pybullet_multigoal_gym_tpu/ops/pallas_multibody.py:_build_kernel
-// (launched through PallasMultiBodyEngine.control_step) for scenes of free
-// and pinned bodies made of box geoms of any size, static boxes and a
-// prismatic door, with the parallel-jaw gripper: block_stack and
-// block_rearrange with 1-5 blocks, chest_push and chest_pick_and_place with
-// 1-5 blocks, the push-primitive tasks (a slot of three boxes and a cube,
-// or a rectangle) and insertion (a free rectangle and a pinned slot of four
-// boxes). Same physics as ops/multibody_plain.py, the plain PyTorch version
-// it is checked against, and the same lane order
-// (pallas_multibody.py:398-517): per free body, per geom of it, the plane
-// (4), both fingers (2 x 9 SAT), then per static box, per geom of a pinned
-// body and per door panel a one-sided manifold (5) and the edge-edge
-// candidate; per geom of a pinned body both fingers (2 x 9 SAT, the geom as
-// side A); per pair of free bodies, per pair of their geoms, a SAT manifold
-// (9) and the edge-edge candidate; per finger, per door panel, a SAT
-// manifold (9, the panel as side A); per finger its pad on the plane (4)
-// and against each static box (one-sided, 5, the pad as side A); the
-// arm-sphere lanes that ops/lane_cull.py keeps, per geom, static box and
-// door panel. A geom's centre is its body's position plus R times its
-// offset; every lane of a free body's geom acts on its body. A pinned body
-// is immovable: no gravity, no plane lanes, no integration, and a lane's
-// pinned side adds nothing to its effective mass and takes no impulse, as
-// the world's side does; a static box is the world at a fixed centre with
-// the identity rotation. The door is one prismatic degree of freedom: its
-// panels ride on the frame anchor + axis * door_q with the identity
-// rotation, a door side moves at axis * door_qd, adds (d . axis)^2 / m_door
-// times its count of active lanes to a lane's effective mass and takes the
-// lane's impulse along its axis; before the contacts a servo drives it
-// toward its hold-open target (or it coasts), and it integrates clamped to
-// [0, limit]. The solver is K2's (engine.cu) with a lane's two sides made
-// general: each side is a body, a finger (riding on the arm), an arm
-// sphere, the door or the world.
+// (launched through PallasMultiBodyEngine.control_step) for scenes of free and
+// pinned bodies made of box geoms of any size, static boxes and a prismatic
+// door, with the parallel-jaw gripper: block_stack and block_rearrange with
+// 1-5 blocks, chest_push and chest_pick_and_place with 1-5 blocks, the
+// push-primitive tasks (a slot of three boxes and a cube, or a rectangle) and
+// insertion (a free rectangle and a pinned slot of four boxes); and
+// block_stack and block_rearrange with the Robotiq-85. The gripper is the
+// first template integer (kin.cuh: finger_frames, Grip). Same physics as
+// ops/multibody_plain.py, the plain PyTorch version it is checked against, and
+// the same lane order (pallas_multibody.py:398-517): per free body, per geom
+// of it, the plane (4), both fingers (2 x 9 SAT), then per static box, per
+// geom of a pinned body and per door panel a one-sided manifold (5) and the
+// edge-edge candidate; per geom of a pinned body both fingers (2 x 9 SAT, the
+// geom as side A); per pair of free bodies, per pair of their geoms, a SAT
+// manifold (9) and the edge-edge candidate; per finger, per door panel, a SAT
+// manifold (9, the panel as side A); per finger its pad on the plane (4) and
+// against each static box (one-sided, 5, the pad as side A); the arm-sphere
+// lanes that ops/lane_cull.py keeps, per geom, static box and door panel. A
+// geom's centre is its body's position plus R times its offset; every lane of
+// a free body's geom acts on its body. A pinned body is immovable: no gravity,
+// no plane lanes, no integration, and a lane's pinned side adds nothing to its
+// effective mass and takes no impulse, as the world's side does; a static box
+// is the world at a fixed centre with the identity rotation. The door is one
+// prismatic degree of freedom: its panels ride on the frame anchor + axis *
+// door_q with the identity rotation, a door side moves at axis * door_qd, adds
+// (d . axis)^2 / m_door times its count of active lanes to a lane's effective
+// mass and takes the lane's impulse along its axis; before the contacts a
+// servo drives it toward its hold-open target (or it coasts), and it
+// integrates clamped to [0, limit]. The solver is K2's (engine.cu) with a
+// lane's two sides made general: each side is a body, a finger (riding on the
+// arm), an arm sphere, the door or the world.
 //
 // Design. As in K2 the state stays on chip for the whole control step, read
 // once and written once as SoA (rows, n) arrays. The scene's structure is a
-// template (bodies, geoms, each geom's body, which arm spheres keep a plane
-// lane and a lane on each geom, the geoms off their body's origin, the
-// pinned bodies, the static boxes and the arm spheres that keep a lane on
-// each, the door's panels and the spheres that keep a lane on them), so the
-// lane plan is static; the sizes, offsets, centres, frictions and the
-// door's frame come with the parameters. Statics and door panels are kept
-// out of the geom table: each has its own sphere mask word. A scene holds
-// up to 558 lanes, most of them inactive in any substep (bodies apart,
-// fingers away): the lane builders keep only the active lanes, in plan
-// order, so the solver's arrays (about 35 words a lane, in per-thread local
-// memory) are touched only as deep as the contacts of this substep reach,
-// and every sum runs over the same lanes in the same order as the dense
-// plan (an inactive lane adds exact zeros). A scene without statics or a
-// door compiles none of their code.
+// template (the gripper, bodies, geoms, each geom's body, which arm spheres
+// keep a plane lane and a lane on each geom, the geoms off their body's
+// origin, the pinned bodies, the static boxes and the arm spheres that keep a
+// lane on each, the door's panels and the spheres that keep a lane on them),
+// so the lane plan is static; the sizes, offsets, centres, frictions and the
+// door's frame come with the parameters. Statics and door panels are kept out
+// of the geom table: each has its own sphere mask word. A scene holds up to
+// 558 lanes, most of them inactive in any substep (bodies apart, fingers
+// away): the lane builders keep only the active lanes, in plan order, so the
+// solver's arrays (about 35 words a lane, in per-thread local memory) are
+// touched only as deep as the contacts of this substep reach, and every sum
+// runs over the same lanes in the same order as the dense plan (an inactive
+// lane adds exact zeros). A scene without statics or a door compiles none of
+// their code.
 //
 // Bound: operations (tests/kernels_count.cpp counts them), against
 // (2 x (18 + 13 NB + 5) + 11) floats of traffic per environment and step.
@@ -226,8 +226,9 @@ struct Lanes {
 };
 
 // One environment, n_sub substeps.
-template <int NB, int NG, unsigned GB, int PLANE_MASK, unsigned long long GM,
-          int OM, int PIN, int NS, unsigned SM, int ND, int DM>
+template <int GRIP, int NB, int NG, unsigned GB, int PLANE_MASK,
+          unsigned long long GM, int OM, int PIN, int NS, unsigned SM, int ND,
+          int DM>
 KDEV void multibody_env(const float* __restrict__ st,
                         const float* __restrict__ ctl,
                         const float* __restrict__ prm, float* __restrict__ out,
@@ -239,7 +240,8 @@ KDEV void multibody_env(const float* __restrict__ st,
     const float plane_z = prm[P_PLANE_Z], erp_dt = prm[P_ERP_DT];
     const float slop = prm[P_SLOP];
     const float mu_fplane = prm[P_MU_FPLANE], mu_splane = prm[P_MU_SPLANE];
-    const float fhalf[3] = {FINGER_HALF[0], FINGER_HALF[1], FINGER_HALF[2]};
+    using G = Grip<GRIP>;
+    const float fhalf[3] = {G::half(0), G::half(1), G::half(2)};
     float inv_mass[NB], inv_I[NB][3], mu_plane[NB], mu_finger[NB],
         mu_sphere[NB], mu_pair[NB][NB];
     for (int b = 0; b < NB; ++b) {
@@ -359,20 +361,14 @@ KDEV void multibody_env(const float* __restrict__ st,
         for (int j = 0; j < 7; ++j) z[j] = qrotate(r[j], V3{0.0f, 0.0f, 1.0f});
         Q4 r7 = r[6];
         M3 Rb7 = qmat(r7);
-        V3 gbase = o[6] + qrotate(r7, load3(GRIPPER_BASE_OFFSET));
         V3 fpos[2], faxis[2];
-#pragma unroll
-        for (int f = 0; f < 2; ++f) {
-            V3 ax = load3(FINGER_AXIS[f]);
-            fpos[f] = gbase + qrotate(r7, load3(FINGER_ORIGIN[f]) + ax * fq[f]);
-            faxis[f] = qrotate(r7, ax);
-        }
+        finger_frames<GRIP>(o[6], r7, fq, fpos, faxis);
         // 3. finger servo
 #pragma unroll
         for (int f = 0; f < 2; ++f) {
             float v_des = clampf(ARM_SERVO_RATE * (ft[f] - fq[f]),
-                                 -FINGER_VEL_LIMIT, FINGER_VEL_LIMIT);
-            float dvf = FINGER_PD_FORCE * DT / FINGER_MASS;
+                                 -G::vel_limit(), G::vel_limit());
+            float dvf = G::force() * DT / G::mass();
             fqd[f] = fqd[f] + clampf(v_des - fqd[f], -dvf, dvf);
         }
         // 4. gravity on the free bodies
@@ -649,14 +645,14 @@ KDEV void multibody_env(const float* __restrict__ st,
                                 count[m.ba];
                 } else if (m.fa >= 0) {
                     float da = dot(d, faxis[m.fa]);
-                    k = k + (da * da / FINGER_MASS) * fcount[m.fa];
+                    k = k + (da * da / G::mass()) * fcount[m.fa];
                 } else if (DOOR && m.ba == DOOR_SIDE) {
                     float dj = dot(d, daxis);
                     k = k + (dj * dj * door_inv_mass) * dcount;
                 }
                 if (m.fb >= 0) {
                     float da = dot(d, faxis[m.fb]);
-                    k = k + (da * da / FINGER_MASS) * fcount[m.fb];
+                    k = k + (da * da / G::mass()) * fcount[m.fb];
                 } else if (m.bb >= 0) {
                     V3 rxd = cross(ls.rb[l], d);
                     k = k + (inv_mass[m.bb] + dot(rxd, mat3vec(Iw[m.bb], rxd))) *
@@ -753,8 +749,8 @@ KDEV void multibody_env(const float* __restrict__ st,
                 bv_[b] = bv_[b] + dv[b] * inv_mass[b];
                 bw_[b] = bw_[b] + mat3vec(Iw[b], dw[b]);
             }
-            fqd_[0] = fqd_[0] + dfq[0] / FINGER_MASS;
-            fqd_[1] = fqd_[1] + dfq[1] / FINGER_MASS;
+            fqd_[0] = fqd_[0] + dfq[0] / G::mass();
+            fqd_[1] = fqd_[1] + dfq[1] / G::mass();
             if (DOOR) door_qd_ = door_qd_ + ddoor * door_inv_mass;
         }
 
@@ -805,9 +801,9 @@ KDEV void multibody_env(const float* __restrict__ st,
         }
 #pragma unroll
         for (int f = 0; f < 2; ++f) {
-            fq[f] = clampf(fq[f] + fqd_[f] * DT, -FINGER_LIMIT, FINGER_LIMIT);
-            fqd[f] = ((fq[f] >= FINGER_LIMIT && fqd_[f] > 0.0f) ||
-                      (fq[f] <= -FINGER_LIMIT && fqd_[f] < 0.0f))
+            fq[f] = clampf(fq[f] + fqd_[f] * DT, G::lo(), G::hi());
+            fqd[f] = ((fq[f] >= G::hi() && fqd_[f] > 0.0f) ||
+                      (fq[f] <= G::lo() && fqd_[f] < 0.0f))
                          ? 0.0f : fqd_[f];
         }
         if (DOOR) {
@@ -852,32 +848,34 @@ KDEV void multibody_env(const float* __restrict__ st,
 }  // namespace kin
 
 // A scene's template arguments as the launch function receives them:
-// (bodies, geoms, geom bodies, plane mask, geom masks, offset geoms, pinned
-// bodies, statics, static masks, door panels, door mask), packed as Plan
-// says (ops/cuda_multibody.py:scene_key).
-#define MB_SCENE_MATCHES(NB, NG, GB, PM, GM, OM, PIN, NS, SM, ND, DM)      \
-    (nb == NB && ng == NG && geom_bodies == GB && plane_mask == PM &&     \
-     geom_masks == GM##ULL && offset_geoms == OM && pinned_bodies == PIN && \
-     statics == NS && static_masks == SM##u && door_panels == ND &&         \
-     door_mask == DM)
-#define MB_SCENE_ARGS(NB, NG, GB, PM, GM, OM, PIN, NS, SM, ND, DM)         \
-    NB, NG, GB, PM, GM##ULL, OM, PIN, NS, SM##u, ND, DM
+// (gripper, bodies, geoms, geom bodies, plane mask, geom masks, offset
+// geoms, pinned bodies, statics, static masks, door panels, door mask),
+// packed as Plan says (ops/cuda_multibody.py:scene_key).
+#define MB_SCENE_MATCHES(G, NB, NG, GB, PM, GM, OM, PIN, NS, SM, ND, DM)   \
+    (grip == G && nb == NB && ng == NG && geom_bodies == GB &&            \
+     plane_mask == PM && geom_masks == GM##ULL && offset_geoms == OM &&   \
+     pinned_bodies == PIN && statics == NS && static_masks == SM##u &&    \
+     door_panels == ND && door_mask == DM)
+#define MB_SCENE_ARGS(G, NB, NG, GB, PM, GM, OM, PIN, NS, SM, ND, DM)      \
+    G, NB, NG, GB, PM, GM##ULL, OM, PIN, NS, SM##u, ND, DM
 #define MB_LAUNCH_PARAMS                                                    \
-    int nb, int ng, unsigned geom_bodies, int plane_mask,                   \
+    int grip, int nb, int ng, unsigned geom_bodies, int plane_mask,         \
         unsigned long long geom_masks, int offset_geoms, int pinned_bodies, \
         int statics, unsigned static_masks, int door_panels, int door_mask
 
 #ifdef __CUDACC__
-template <int NB, int NG, unsigned GB, int PLANE_MASK, unsigned long long GM,
-          int OM, int PIN, int NS, unsigned SM, int ND, int DM>
+template <int GRIP, int NB, int NG, unsigned GB, int PLANE_MASK,
+          unsigned long long GM, int OM, int PIN, int NS, unsigned SM, int ND,
+          int DM>
 __global__ void __launch_bounds__(32)
 multibody_kernel(const float* __restrict__ st, const float* __restrict__ ctl,
                  const float* __restrict__ prm, float* __restrict__ out, int n,
                  int n_sub, int iters) {
     int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i < n)
-        kin::mb::multibody_env<NB, NG, GB, PLANE_MASK, GM, OM, PIN, NS, SM, ND,
-                               DM>(st, ctl, prm, out, n, i, n_sub, iters);
+        kin::mb::multibody_env<GRIP, NB, NG, GB, PLANE_MASK, GM, OM, PIN, NS,
+                               SM, ND, DM>(st, ctl, prm, out, n, i, n_sub,
+                                           iters);
 }
 
 // The body of a launch function over the scenes of SCENES: launches the

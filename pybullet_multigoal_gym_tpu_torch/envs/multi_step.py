@@ -82,7 +82,8 @@ class KukaMultiBlockEnv(KukaEnvBase):
         self.spec = S.multi_step_scene(cfg.num_block, cfg.has_chest,
                                        cfg.chest_door)
         self.scene = D.multibody_consts(self.spec,
-                                        ik_workspace=self.ik_workspace)
+                                        ik_workspace=self.ik_workspace,
+                                        gripper=cfg.gripper)
         self.engine = CudaMultiBodyEngine(self.scene)
         if cfg.has_chest:
             # the chest shifts the blocks' spawn bounds (JAX
@@ -156,7 +157,8 @@ class KukaMultiBlockEnv(KukaEnvBase):
         cfg = self.cfg
         ph = state.phys
         n = ph.q.shape[0]
-        rs = R.robot_state(ph.q, ph.qd, ph.fq, ph.fqd, cfg.grasping)
+        rs = R.robot_state(ph.q, ph.qd, ph.fq, ph.fqd, cfg.grasping,
+                           gripper=cfg.gripper)
         gripper_xyz = rs['gripper_xyz']
         gvel = rs['gripper_vel_xyz']
         closeness = rs['gripper_finger_closeness']

@@ -13,20 +13,23 @@ from pybullet_multigoal_gym_tpu_torch.utils.tensors import const
 EE_FORCE_LIMIT = 50.0
 
 
-def robot_state(q, qd, fq, fqd, grasping: bool, ee_contact_force=None):
-    """A dict of the robot-state fields (parallel-jaw gripper): tip pose
-    (rpy in PyBullet's Euler convention), tip velocities from the Jacobian,
-    finger closeness (the distance between the two finger tabs) and finger
-    velocity ((base_vel - finger_tab_vel)[y]). With ``ee_contact_force``
-    (the engine's world-frame contact force on the gripper), also the EE
-    force sensor ``ee_joint_force``: that force plus the gravity load of
-    the distal subtree (link 7, the gripper base and the fingers,
-    ``KM.EE_SUBTREE_MASS``), a constant world -z force, turned into link
-    7's frame, so that the reading depends on the orientation as Bullet's
-    joint-frame sensor does, and clipped to +-50 N (JAX
-    `envs/robot.py:59-72`)."""
+def robot_state(q, qd, fq, fqd, grasping: bool, ee_contact_force=None,
+                gripper: str = 'parallel_jaw'):
+    """A dict of the robot-state fields of ``gripper``: tip pose (rpy in
+    PyBullet's Euler convention), tip velocities from the Jacobian, finger
+    closeness (the distance between the two finger tabs, for either
+    gripper) and finger velocity ((base_vel - finger_tab_vel)[y], the
+    Robotiq-85's tab moving along its closure angle's velocity, which is
+    not a unit vector). With ``ee_contact_force`` (the engine's world-frame
+    contact force on the gripper), also the EE force sensor
+    ``ee_joint_force``: that force plus the gravity load of the distal
+    subtree (link 7, the gripper base and the fingers: ``KM.EE_SUBTREE_MASS``,
+    or ``KM.ROBOTIQ_EE_SUBTREE_MASS`` with the linkage), a constant world -z
+    force, turned into link 7's frame, so that the reading depends on the
+    orientation as Bullet's joint-frame sensor does, and clipped to +-50 N
+    (JAX `envs/robot.py:59-72`)."""
     pos, rot = fk.link_frames(q)
-    frames = fk.ee_frames(q, fq, frames=(pos, rot))
+    frames = fk.ee_frames(q, fq, gripper, frames=(pos, rot))
     r7 = rot[..., 6, :]
     tip = frames['tip']
     jac = fk._jacobian(pos, rot, tip)                     # (..., 6, 7)
@@ -59,7 +62,9 @@ def robot_state(q, qd, fq, fqd, grasping: bool, ee_contact_force=None):
         'frames': frames,
     }
     if ee_contact_force is not None:
-        g_load = KM.EE_SUBTREE_MASS * 9.81
+        subtree = (KM.ROBOTIQ_EE_SUBTREE_MASS if gripper == 'robotiq85'
+                   else KM.EE_SUBTREE_MASS)
+        g_load = subtree * 9.81
         f_world = ee_contact_force + const([0.0, 0.0, -g_load], q)
         out['ee_joint_force'] = torch.clamp(quatm.rotate_inv(r7, f_world),
                                             -EE_FORCE_LIMIT, EE_FORCE_LIMIT)

@@ -6,8 +6,9 @@ batch (leading env axis) on the env's device. The step is split as in the
 JAX package: ``step_decode_pre`` (action decoding), then the vec wrapper runs
 IK (kernel K1, `ops/cuda_ik.py`) and the control step (kernel K2,
 `ops/cuda_engine.py`), then ``step_finish`` (observation and reward).
-
-The Robotiq-85 gripper comes with a later slice of the port.
+With the Robotiq-85 gripper the finger joints are the linkage's closure
+angles in [0, 0.804] rad, the tip lies 0.18 m out along link 7's z, and
+the rest pose is solved for that tip.
 """
 
 import numpy as np
@@ -36,9 +37,12 @@ class KukaEnvBase:
     reset state, for a batch of environments on ``device``."""
 
     def __init__(self, cfg: EnvConfig, device: torch.device):
-        if cfg.gripper != 'parallel_jaw':
-            raise NotImplementedError('the Robotiq-85 gripper comes with a '
-                                      'later slice of the port')
+        if cfg.gripper == 'robotiq85' and (
+                cfg.has_chest
+                or cfg.family not in ('single_step', 'multi_step')):
+            raise NotImplementedError(
+                'the Robotiq-85 gripper on the push primitives, insertion and '
+                'the chest comes with a later slice of the port, the next one')
         if cfg.image_observation or cfg.point_cloud or cfg.goal_image:
             raise NotImplementedError('image and point-cloud observations '
                                       'come with a later slice of the port')
@@ -68,15 +72,26 @@ class KukaEnvBase:
             # (kuka_single_step_base_env.py:66-69)
             self.target_lower[0] -= 0.4
             self.target_upper[0] -= 0.4
-        self.gripper_abs_joint_limit = KM.FINGER_LIMIT
+        # the gripper's joint-limit surface (JAX `single_step.py:59-70`):
+        # the grip action's scale and the reset's finger state; the grasp
+        # state and the finger scale are kept for the render slice
+        robotiq = cfg.gripper == 'robotiq85'
+        self.gripper_abs_joint_limit = (KM.ROBOTIQ_JOINT_LIMIT if robotiq
+                                        else KM.FINGER_LIMIT)
+        self.gripper_grasp_block_state = (
+            KM.ROBOTIQ_GRASP_BLOCK_STATE if robotiq
+            else KM.PARALLEL_JAW_GRASP_BLOCK_STATE)
+        self.finger_scale = (KM.FINGER_LIMIT / KM.ROBOTIQ_JOINT_LIMIT
+                             if robotiq else 1.0)
         self.block_z = 0.175
-        # rest pose: IK from the canonical pose to the tip start, on the CPU
-        # so every device starts from the same numbers
+        # rest pose: IK from the canonical pose to the gripper's tip start,
+        # on the CPU so every device starts from the same numbers
         rest = ik.solve(torch.tensor(tip_init, dtype=F32),
-                        q_init=torch.tensor(KM.KUKA_REST_POSE, dtype=F32))
+                        q_init=torch.tensor(KM.KUKA_REST_POSE, dtype=F32),
+                        gripper=cfg.gripper)
         self.rest_pose = rest.numpy()
-        self.tip_rest = fk.tip_pose(rest)[0].numpy()
-        self.ik = CudaIK(num_iters=IK_ITERS_IN_STEP)
+        self.tip_rest = fk.tip_pose(rest, cfg.gripper)[0].numpy()
+        self.ik = CudaIK(num_iters=IK_ITERS_IN_STEP, gripper=cfg.gripper)
 
         def t(x):
             return torch.as_tensor(np.asarray(x, np.float32), device=device)
@@ -181,7 +196,8 @@ class KukaSingleStepEnv(KukaEnvBase):
         self.block_z = 0.170 if cfg.table_type == 'long_table' else 0.175
         self.spec = S.single_step_scene(cfg.has_obj, cfg.table_type)
         self.nb = max(self.spec.n_bodies, 1)
-        self.scene = D.scene_consts(self.spec, ik_workspace=self.ik_workspace)
+        self.scene = D.scene_consts(self.spec, ik_workspace=self.ik_workspace,
+                                    gripper=cfg.gripper)
         self.engine = CudaEngine(self.scene)
 
     # ------------------------------------------------------------------ reset
@@ -231,7 +247,8 @@ class KukaSingleStepEnv(KukaEnvBase):
         """Field for field the JAX package's single-step observation."""
         cfg = self.cfg
         ph = state.phys
-        rs = R.robot_state(ph.q, ph.qd, ph.fq, ph.fqd, cfg.grasping)
+        rs = R.robot_state(ph.q, ph.qd, ph.fq, ph.fqd, cfg.grasping,
+                           gripper=cfg.gripper)
         gripper_xyz = rs['gripper_xyz']
         policy_state = state_vec = gripper_xyz
         achieved_goal = gripper_xyz

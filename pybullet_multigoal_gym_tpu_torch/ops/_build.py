@@ -30,13 +30,15 @@ FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the libraries' launch functions (all return
-# cudaGetLastError() as an int); K3's two libraries share one
-_MULTIBODY_ARGS = [_I, _I, ctypes.c_uint, _I, ctypes.c_ulonglong, _I, _I, _I,
-                   ctypes.c_uint, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P]
+# cudaGetLastError() as an int); K3's libraries share one
+_MULTIBODY_ARGS = [_I, _I, _I, ctypes.c_uint, _I, ctypes.c_ulonglong, _I, _I,
+                   _I, ctypes.c_uint, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P]
 SIGNATURES = {
     'ik': ('ik_launch', [_P, _P, _I, _I, _F, _F, _F, _P]),
-    'engine': ('engine_launch', [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P]),
+    'engine': ('engine_launch',
+               [_I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P]),
     'multibody': ('multibody_launch', _MULTIBODY_ARGS),
+    'multibody_robotiq': ('multibody_robotiq_launch', _MULTIBODY_ARGS),
     'chest_push': ('chest_push_launch', _MULTIBODY_ARGS),
     'chest_pick': ('chest_pick_launch', _MULTIBODY_ARGS),
 }

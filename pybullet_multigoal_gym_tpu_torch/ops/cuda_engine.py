@@ -2,7 +2,9 @@
 
 Replaces `pybullet_multigoal_gym_tpu/ops/pallas_engine.py:_build_kernel`
 (launched through `PallasEngine.control_step`) for the no-object scene, the
-one-free-box scene and the one-free-cylinder scene (slide). Its plain version is `ops/engine_plain.py:control_step`:
+one-free-box scene and the one-free-cylinder scene (slide), with the
+parallel-jaw gripper or the Robotiq-85. Its plain version is
+`ops/engine_plain.py:control_step`:
 the wrapper runs that for tensors on the CPU and launches the kernel for
 tensors on a CUDA device, and raises for any other device.
 
@@ -23,13 +25,17 @@ from pybullet_multigoal_gym_tpu_torch.ops import scene as S
 from pybullet_multigoal_gym_tpu_torch.ops.cuda_ik import (check_operand,
                                                          check_rows)
 
+# the kernels' gripper template integer (kin.cuh GRIP_JAW, GRIP_ROBOTIQ)
+GRIPPERS = ('parallel_jaw', 'robotiq85')
+
 
 def scene_key(sc: D.SceneConsts):
     """The kernel instance a scene runs on (an `ENGINE_SCENES` entry of
-    `engine.cu`): its body (0 none, 1 a box, 2 a cylinder), and the arm
-    spheres that keep a plane lane and a body lane (bit masks)."""
+    `engine.cu`): its gripper (0 the parallel jaw, 1 the Robotiq-85), its
+    body (0 none, 1 a box, 2 a cylinder), and the arm spheres that keep a
+    plane lane and a body lane (bit masks)."""
     body = 0 if not sc.has_body else (1 if sc.geom_type == S.BOX else 2)
-    return body, sc.plane_mask, sc.geom_mask
+    return GRIPPERS.index(sc.gripper), body, sc.plane_mask, sc.geom_mask
 
 
 def scene_params(sc: D.SceneConsts):

@@ -65,10 +65,13 @@ class CudaIK:
 
     ``launches`` counts the kernel's launches (CPU calls are not counted)."""
 
-    def __init__(self, num_iters: int = KM.IK_MAX_ITERS):
+    def __init__(self, num_iters: int = KM.IK_MAX_ITERS,
+                 gripper: str = 'parallel_jaw'):
         self.num_iters = int(num_iters)
-        # parallel-jaw tip (the Robotiq-85 comes with a later slice)
-        self.tip_offset = [float(x) for x in np.float32(KM.TIP_OFFSET)]
+        self.gripper = gripper
+        # the gripper's tip in link 7's frame (`pallas_ik.py:95`)
+        self.tip_offset = [float(x) for x in
+                           np.float32(KM.tip_offset_for(gripper))]
         self.launches = 0
 
     def solve(self, target_pos, target_quat=None, rest_pose=None,
@@ -77,7 +80,7 @@ class CudaIK:
         device = target_pos.device
         if device.type == 'cpu':
             return ik.solve(target_pos, target_quat, rest_pose, q_init,
-                            num_iters=self.num_iters)
+                            num_iters=self.num_iters, gripper=self.gripper)
         if device.type != 'cuda':
             raise ValueError('CudaIK runs on cuda (kernel) or cpu (plain '
                              'version), not %s' % device)

@@ -6,13 +6,15 @@ Replaces `pybullet_multigoal_gym_tpu/ops/pallas_multibody.py:_build_kernel`
 and pinned bodies made of box geoms, static boxes and a prismatic door,
 with the parallel-jaw gripper: block_stack and block_rearrange with 1-5
 blocks, chest_push and chest_pick_and_place with 1-5 blocks, the
-push-primitive tasks and insertion. Its plain version is
+push-primitive tasks and insertion; and with the Robotiq-85: block_stack
+and block_rearrange. Its plain version is
 `ops/multibody_plain.py:control_step`: the wrapper runs that for tensors on
 the CPU and launches the kernel for tensors on a CUDA device, and raises for
 any other device. `D.multibody_consts` raises for the scenes later slices
 bring (the revolving door, cylinders). Each chest task's scenes are a
 library of their own (`csrc/chest_push.cu`, `csrc/chest_pick.cu`), the
-others' `csrc/multibody.cu`: the three instantiate the template of
+block scenes with the Robotiq-85 too (`csrc/multibody_robotiq.cu`), the
+others' `csrc/multibody.cu`: the four instantiate the template of
 `csrc/multibody.cuh` and build at once.
 
 One launch runs all ``n_substeps`` substeps with the state held on chip: the
@@ -29,6 +31,7 @@ import torch
 
 from pybullet_multigoal_gym_tpu_torch.ops import _build, multibody_plain
 from pybullet_multigoal_gym_tpu_torch.ops import dynamics as D
+from pybullet_multigoal_gym_tpu_torch.ops.cuda_engine import GRIPPERS
 from pybullet_multigoal_gym_tpu_torch.ops.cuda_ik import (check_operand,
                                                          check_rows)
 
@@ -67,13 +70,13 @@ def scene_params(sc: D.MultiBodyConsts):
 
 def scene_key(sc: D.MultiBodyConsts):
     """The scene's structure as `multibody.cuh` picks its kernel instance
-    (one of `MULTIBODY_SCENES` or `CHEST_SCENES`): bodies, geoms, each
-    geom's body (4 bits a geom), the plane mask, each geom's sphere mask (7
-    bits a geom), the geoms off their body's origin (a bit each), the pinned
-    bodies (a bit each), the static boxes, each static's sphere mask (7 bits
-    a static), the door's panels (0 without a door) and their sphere
-    mask."""
-    return (sc.nb, sc.ng,
+    (an entry of a library's scene list): the gripper (0 the parallel jaw,
+    1 the Robotiq-85), bodies, geoms, each geom's body (4 bits a geom), the
+    plane mask, each geom's sphere mask (7 bits a geom), the geoms off their
+    body's origin (a bit each), the pinned bodies (a bit each), the static
+    boxes, each static's sphere mask (7 bits a static), the door's panels (0
+    without a door) and their sphere mask."""
+    return (GRIPPERS.index(sc.gripper), sc.nb, sc.ng,
             sum(b << 4 * g for g, b in enumerate(sc.geom_body)),
             sc.plane_mask,
             sum(m << 7 * g for g, m in enumerate(sc.geom_mask)),
@@ -85,10 +88,12 @@ def scene_key(sc: D.MultiBodyConsts):
 
 def library(sc: D.MultiBodyConsts):
     """The kernel library that holds the scene's instance: 'multibody'
-    without a chest, else chest_push's (three walls, the front_sliding door
-    the fourth) or chest_pick_and_place's (four walls under the lid)."""
+    without a chest ('multibody_robotiq' with the Robotiq-85), else
+    chest_push's (three walls, the front_sliding door the fourth) or
+    chest_pick_and_place's (four walls under the lid)."""
     if not (sc.ns or sc.nd):
-        return 'multibody'
+        return ('multibody_robotiq' if sc.gripper == 'robotiq85'
+                else 'multibody')
     return {3: 'chest_push', 4: 'chest_pick'}[sc.ns]
 
 

@@ -49,6 +49,36 @@ class PhysicsState(NamedTuple):
     ee_contact_force: torch.Tensor  # (N, 3) world-frame contact force on gripper
 
 
+class FingerConsts(NamedTuple):
+    """A gripper's finger constants (JAX `dynamics.py:178-194`): the pad
+    box's half extents in link 7's axes, the finger DoF's inertia (kg for
+    the parallel jaw's slide; kg m^2 about the Robotiq-85's closure angle,
+    whose pad velocity per unit rate is not a unit vector), its servo's
+    force and velocity limit, and its joint range."""
+    half: Tuple[float, float, float]
+    mass: float
+    force: float
+    vel_limit: float
+    lo: float
+    hi: float
+
+
+def finger_consts(gripper: str) -> FingerConsts:
+    """The finger constants of ``gripper`` ('parallel_jaw' or
+    'robotiq85')."""
+    if gripper == 'robotiq85':
+        return FingerConsts(
+            half=tuple(float(x) for x in KM.ROBOTIQ_PAD_HALF),
+            mass=KM.ROBOTIQ_FINGER_INERTIA, force=KM.ROBOTIQ_PD_FORCE,
+            vel_limit=KM.ROBOTIQ_VEL_LIMIT, lo=0.0,
+            hi=KM.ROBOTIQ_JOINT_LIMIT)
+    return FingerConsts(
+        half=tuple(float(x) for x in KM.FINGER_HALF_EXTENTS),
+        mass=KM.FINGER_MASS * KM.FINGER_INERTIA_SCALING,
+        force=KM.FINGER_PD_FORCE, vel_limit=FINGER_VEL_LIMIT,
+        lo=-KM.FINGER_LIMIT, hi=KM.FINGER_LIMIT)
+
+
 class Controls(NamedTuple):
     q_target: torch.Tensor       # (N, 7)
     f_target: torch.Tensor       # (N, 2) finger joint targets
@@ -75,18 +105,25 @@ class SceneConsts:
     # arm-sphere lanes kept by the workspace envelope (lane_cull), bit sp
     plane_mask: int
     geom_mask: int
+    # 'parallel_jaw' or 'robotiq85': the pads' kinematics and `finger`
+    gripper: str = 'parallel_jaw'
     # solver: 8 mass-splitting Jacobi iterations, Baumgarte erp and slop
     # (the JAX package's Engine defaults)
     solver_iters: int = 8
     erp: float = 0.2
     slop: float = 5e-4
 
+    @property
+    def finger(self) -> FingerConsts:
+        return finger_consts(self.gripper)
 
-def scene_consts(spec: S.SceneSpec, ik_workspace: bool = True) -> SceneConsts:
-    """Static constants of a single-step scene with the parallel-jaw
-    gripper: the no-object scene, one free box or one free upright cylinder
-    (`pallas_engine.py:497-534`). ``ik_workspace=False`` (joint control)
-    keeps every arm-sphere lane."""
+
+def scene_consts(spec: S.SceneSpec, ik_workspace: bool = True,
+                 gripper: str = 'parallel_jaw') -> SceneConsts:
+    """Static constants of a single-step scene with ``gripper`` (the
+    parallel jaw or the Robotiq-85): the no-object scene, one free box or
+    one free upright cylinder (`pallas_engine.py:497-534`).
+    ``ik_workspace=False`` (joint control) keeps every arm-sphere lane."""
     assert spec.n_bodies <= 1 and spec.ns_static == 0 and spec.door is None, \
         'single-free-body scenes only'
     has_body = spec.n_bodies == 1
@@ -111,7 +148,8 @@ def scene_consts(spec: S.SceneSpec, ik_workspace: bool = True) -> SceneConsts:
         has_body=has_body, geom_type=geom_type, half=half, inv_mass=inv_mass,
         inv_inertia=inv_inertia, body_friction=fric, plane_z=spec.plane_z,
         plane_friction=spec.plane_friction, plane_mu=fric * spec.plane_friction,
-        finger_mu=fric * 1.0, plane_mask=plane_mask, geom_mask=geom_mask)
+        finger_mu=fric * 1.0, plane_mask=plane_mask, geom_mask=geom_mask,
+        gripper=gripper)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,9 +197,15 @@ class MultiBodyConsts:
     door_half: Tuple[Tuple[float, float, float], ...] = ()
     door_pos: Tuple[Tuple[float, float, float], ...] = ()
     door_mask: int = 0
+    # 'parallel_jaw' or 'robotiq85': the pads' kinematics and `finger`
+    gripper: str = 'parallel_jaw'
     solver_iters: int = 8
     erp: float = 0.2
     slop: float = 5e-4
+
+    @property
+    def finger(self) -> FingerConsts:
+        return finger_consts(self.gripper)
 
     @property
     def ns(self):
@@ -259,14 +303,15 @@ class MultiBodyConsts:
         return const(self.door_axis, p).expand(p.shape)
 
 
-def multibody_consts(spec: S.SceneSpec, ik_workspace: bool = True
-                     ) -> MultiBodyConsts:
+def multibody_consts(spec: S.SceneSpec, ik_workspace: bool = True,
+                     gripper: str = 'parallel_jaw') -> MultiBodyConsts:
     """Static constants of a multi-body scene of free and pinned bodies
-    made of one or more box geoms of any size, with the parallel-jaw
-    gripper (the multi-step family without the chest, the push-primitive
-    family, insertion). ``ik_workspace=False`` (joint control) keeps every
-    arm-sphere lane. A body of mass <= 0 is pinned: inverse mass and
-    inverse inertia 0. A free body's inertia is that of its geom at the
+    made of one or more box geoms of any size, with ``gripper`` (the
+    multi-step family, the push-primitive family, insertion; the envs
+    build the Robotiq-85's scenes only for the block tasks).
+    ``ik_workspace=False`` (joint control) keeps every arm-sphere lane. A
+    body of mass <= 0 is pinned: inverse mass and inverse inertia 0. A
+    free body's inertia is that of its geom at the
     body origin alone, or a 1e-3 diagonal where it has none (the
     reference's convention, `pallas_multibody.py:273-281`). The chest's
     walls are static boxes and its sliding door a prismatic door
@@ -335,7 +380,7 @@ def multibody_consts(spec: S.SceneSpec, ik_workspace: bool = True
                        if reach['plane'][sp]),
         geom_mask=tuple(sum(1 << sp for sp in range(N_ARM_SPHERES)
                             if reach['geom'][sp][g]) for g in range(ng)),
-        **chest)
+        gripper=gripper, **chest)
 
 
 def init_state(n, nb=1, q=None, body_pos=None, body_quat=None,

@@ -12,7 +12,7 @@ The CPU path and the tests run this module; on the card `ops/cuda_engine.py`
 launches `csrc/engine.cu` instead, and the chip smoke test holds the two
 against each other. Scope: the no-object scene (reach), one free box
 (push, pick_and_place) and one free upright cylinder (slide's puck) with the
-parallel-jaw gripper. The lane builders
+parallel-jaw or the Robotiq-85 gripper. The lane builders
 (and the edge-edge lane, which only K3 uses) also serve K3's plain version,
 `ops/multibody_plain.py`.
 """
@@ -37,9 +37,6 @@ _ARM_CAP = [float(KM.ARM_PD_FORCE * D.DT_SUB * _INV_ARM_INERTIA[j])
             for j in range(7)]                                # coupling cap
 _JL_LO = np.asarray(KM.JOINT_LIMIT_LOWER, F32)
 _JL_HI = np.asarray(KM.JOINT_LIMIT_UPPER, F32)
-FINGER_HALF = tuple(float(x) for x in KM.FINGER_HALF_EXTENTS)
-FINGER_MASS = KM.FINGER_MASS * KM.FINGER_INERTIA_SCALING
-_FQ_LO, _FQ_HI = -KM.FINGER_LIMIT, KM.FINGER_LIMIT
 _EZ = (0.0, 0.0, 1.0)
 
 
@@ -68,23 +65,31 @@ def _col(R, k):
 
 
 # --------------------------------------------------------------------- FK
-def fk_chain(q, fq):
+def fk_chain(q, fq, gripper: str = 'parallel_jaw'):
     """FK of the whole arm chain plus the finger and arm-sphere placement
-    (`pallas_engine.py:fk_chain`, parallel jaw).
+    (`pallas_engine.py:fk_chain`): the parallel jaw's pads slide along
+    their axes from the gripper base, the Robotiq-85's hang from link 7's
+    origin on the linkage (`fk.robotiq_pads`).
 
     Returns a dict of tensors: joint origins ``o`` (N, 7, 3), rotations
     ``rots`` (N, 7, 4), joint z axes ``z`` (N, 7, 3), link-7 quat ``r7``,
     ``gbase``, finger box centres ``fpos`` (N, 2, 3), finger axes ``faxis``
-    (N, 2, 3) and the arm collision sphere centres ``spheres`` (N, 7, 3)."""
+    (N, 2, 3; the pad velocity per unit finger rate) and the arm collision
+    sphere centres ``spheres`` (N, 7, 3)."""
     o, rots = fk.link_frames(q)
     z = qrotate(rots, const(_EZ, q))
     r7 = rots[:, 6]
     gbase = o[:, 6] + qrotate(r7, const(KM.GRIPPER_BASE_OFFSET, q))
     r7f = r7[:, None]
-    axis = const(KM.FINGER_AXIS, q)
-    loc = const(KM.FINGER_ORIGIN, q) + axis * fq[:, :, None]
-    fpos = gbase[:, None] + qrotate(r7f, loc)
-    faxis = qrotate(r7f, axis)
+    if gripper == 'robotiq85':
+        pads = fk.robotiq_pads(fq)
+        fpos = o[:, 6, None] + qrotate(r7f, pads['center'])
+        faxis = qrotate(r7f, pads['vel'])
+    else:
+        axis = const(KM.FINGER_AXIS, q)
+        loc = const(KM.FINGER_ORIGIN, q) + axis * fq[:, :, None]
+        fpos = gbase[:, None] + qrotate(r7f, loc)
+        faxis = qrotate(r7f, axis)
     li = index(KM.ARM_SPHERE_LINK, q)
     spheres = o[:, li] + qrotate(rots[:, li], const(KM.ARM_SPHERE_OFFSET, q))
     return dict(o=o, rots=rots, z=z, r7=r7, gbase=gbase, fpos=fpos,
@@ -391,6 +396,7 @@ def build_lanes(sc: D.SceneConsts, ch, bp, bq, Ra):
     of its half extents, as both reference engines do."""
     fpos, r7 = ch['fpos'], ch['r7']
     Rb7 = qmat(r7)
+    fhalf = sc.finger.half
     lanes = []
     pad = dict(body_sgn=1.0, fin_sgn=-1.0, link=6, arm_sgn=-1.0, ee_sgn=-1.0)
     if sc.has_body and sc.geom_type == S.BOX:
@@ -398,7 +404,7 @@ def build_lanes(sc: D.SceneConsts, ch, bp, bq, Ra):
                                  body_sgn=1.0)
         for f in range(2):
             lanes += sat_box_box_lanes(
-                bp, Ra, sc.half, fpos[:, f], Rb7, FINGER_HALF, sc.finger_mu,
+                bp, Ra, sc.half, fpos[:, f], Rb7, fhalf, sc.finger_mu,
                 finger_idx=f, **pad)
     elif sc.has_body:
         # the puck: radius half[0], half length half[2]; the pad is side B
@@ -406,11 +412,11 @@ def build_lanes(sc: D.SceneConsts, ch, bp, bq, Ra):
                                  sc.plane_mu, body_sgn=1.0)
         for f in range(2):
             lanes += box_cyl_lanes(
-                fpos[:, f], Rb7, FINGER_HALF, bp, sc.half[0], sc.half[2],
+                fpos[:, f], Rb7, fhalf, bp, sc.half[0], sc.half[2],
                 sc.finger_mu, finger_idx=f, **pad)
     for f in range(2):
         lanes += box_plane_lanes(
-            fpos[:, f], r7, FINGER_HALF, sc.plane_z, 1.0 * sc.plane_friction,
+            fpos[:, f], r7, fhalf, sc.plane_z, 1.0 * sc.plane_friction,
             finger_idx=f, fin_sgn=1.0, link=6, arm_sgn=1.0, couple=1.0,
             ee_sgn=1.0)
     # arm spheres the workspace envelope can never bring into contact are
@@ -481,6 +487,7 @@ def substep(sc: D.SceneConsts, carry, qt, ft):
     q, qd, fq, fqd, bp, bq, bv, bw = carry
     dt = D.DT_SUB
     has_body = sc.has_body
+    fc = sc.finger
 
     # 1. arm servo -> proposed qd (q integrates after the solve)
     v_des = torch.clamp(D.ARM_SERVO_RATE * (qt - q), -D.ARM_VEL_LIMIT,
@@ -489,13 +496,13 @@ def substep(sc: D.SceneConsts, carry, qt, ft):
     qd = qd + torch.clamp(v_des - qd, -dv, dv)
 
     # 2. FK at the current configuration
-    ch = fk_chain(q, fq)
+    ch = fk_chain(q, fq, sc.gripper)
     o, z = ch['o'], ch['z']
 
     # 3. finger servo
-    fv_des = torch.clamp(D.ARM_SERVO_RATE * (ft - fq), -D.FINGER_VEL_LIMIT,
-                         D.FINGER_VEL_LIMIT)
-    fdv = KM.FINGER_PD_FORCE * dt / FINGER_MASS
+    fv_des = torch.clamp(D.ARM_SERVO_RATE * (ft - fq), -fc.vel_limit,
+                         fc.vel_limit)
+    fdv = fc.force * dt / fc.mass
     fqd = fqd + torch.clamp(fv_des - fqd, -fdv, fdv)
 
     # 4. gravity
@@ -570,7 +577,7 @@ def substep(sc: D.SceneConsts, carry, qt, ft):
 
     def k_dir(d):
         da = (d * lane_axis).sum(-1)
-        k = (da * da / FINGER_MASS) * lane_fin_count * (is_fin[0] + is_fin[1])
+        k = (da * da / fc.mass) * lane_fin_count * (is_fin[0] + is_fin[1])
         k = k + k_arm(d)
         if has_body:
             rxd = vcross(r_a, d)
@@ -622,7 +629,7 @@ def substep(sc: D.SceneConsts, carry, qt, ft):
             imp_b = imp * body_sgn_v
             bv_ = bv_ + imp_b.sum(1) * sc.inv_mass
             bw_ = bw_ + mat3vec(inv_I_w, vcross(r_a, imp_b).sum(1))
-        dfq = (imp * lane_axis).sum(-1) * m['fin_sgn'] / FINGER_MASS
+        dfq = (imp * lane_axis).sum(-1) * m['fin_sgn'] / fc.mass
         fqd_ = torch.stack([fqd_[:, 0] + (dfq * is_fin[0]).sum(1),
                             fqd_[:, 1] + (dfq * is_fin[1]).sum(1)], -1)
         ln, lt1, lt2 = nln, nlt1, nlt2
@@ -657,9 +664,9 @@ def substep(sc: D.SceneConsts, carry, qt, ft):
         s = torch.where(w_norm > 1e-9, torch.sin(half_ang) / w_norm, 0.0)
         dq_rot = torch.cat([torch.cos(half_ang)[:, None], bw_ * s[:, None]], -1)
         bq = qnormalize(qmul(dq_rot, bq))
-    fq = torch.clamp(fq + fqd_ * dt, _FQ_LO, _FQ_HI)
-    fqd_ = torch.where((fq >= _FQ_HI) & (fqd_ > 0), 0.0,
-                       torch.where((fq <= _FQ_LO) & (fqd_ < 0), 0.0, fqd_))
+    fq = torch.clamp(fq + fqd_ * dt, fc.lo, fc.hi)
+    fqd_ = torch.where((fq >= fc.hi) & (fqd_ > 0), 0.0,
+                       torch.where((fq <= fc.lo) & (fqd_ < 0), 0.0, fqd_))
     return (q, qd, fq, fqd_, bp, bq, bv_, bw_), ee_force
 
 

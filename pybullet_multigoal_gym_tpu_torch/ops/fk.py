@@ -71,10 +71,38 @@ def tip_pose(q, gripper: str = 'parallel_jaw'):
     return _tip(pos, rot, gripper), rot[..., 6, :]
 
 
-def ee_frames(q, finger_q, frames=None):
-    """All end-effector frames of the parallel-jaw gripper that the env
-    layer needs, from one FK pass (``frames``: an optional
-    ``link_frames(q)`` result to reuse).
+def robotiq_pads(fq):
+    """The Robotiq-85's pads in link 7's frame (`KM.robotiq_pad_kinematics`)
+    for closure angles ``fq`` (..., 2): the pad tabs (the closeness
+    endpoints), the pad box centres and the pad velocity per unit closure
+    rate, each (..., 2, 3). Summed in the order of the Pallas kernel's
+    `fk_chain` (`pallas_engine.py:149-165`), which gives the XLA engine's
+    values bit for bit: the base offset last, the pad's half thickness
+    inside the side's sign. |vel| is ``KM.ROBOTIQ_ARM_LEN`` m/rad, not 1."""
+    s = const([1.0, -1.0], fq)
+    ct, st = torch.cos(fq), torch.sin(fq)
+    pad_x = (KM.ROBOTIQ_INNER_X + KM.ROBOTIQ_ARM_TX * ct
+             + KM.ROBOTIQ_ARM_TY * st + KM.ROBOTIQ_TAB_X
+             + KM.ROBOTIQ_BASE_OFFSET[2])
+    inner_y = (KM.ROBOTIQ_INNER_Y + KM.ROBOTIQ_ARM_TY * ct
+               - KM.ROBOTIQ_ARM_TX * st - KM.ROBOTIQ_TAB_Y)
+    dx = -KM.ROBOTIQ_ARM_TX * st + KM.ROBOTIQ_ARM_TY * ct
+    dy = -s * (KM.ROBOTIQ_ARM_TX * ct + KM.ROBOTIQ_ARM_TY * st)
+    zero = torch.zeros_like(ct)
+    return {
+        'tab': torch.stack([zero, s * inner_y, pad_x], -1),
+        'center': torch.stack(
+            [zero, s * (inner_y + KM.ROBOTIQ_PAD_HALF[1]), pad_x], -1),
+        'vel': torch.stack([zero, dy, dx], -1),
+    }
+
+
+def ee_frames(q, finger_q, gripper: str = 'parallel_jaw', frames=None):
+    """All end-effector frames that the env layer needs, from one FK pass
+    (``frames``: an optional ``link_frames(q)`` result to reuse).
+    ``finger_q`` is (..., 2): prismatic metres for the parallel jaw,
+    closure radians for the Robotiq-85, whose pads hang from link 7's
+    origin (`robotiq_pads`).
 
     Returns a dict of world positions (and the tip rotation): tip, tip_rot,
     hand_cam, gripper_base, finger_pos (..., 2, 3) [pad box centres],
@@ -83,15 +111,21 @@ def ee_frames(q, finger_q, frames=None):
     """
     pos, rot = link_frames(q) if frames is None else frames
     p7, r7 = pos[..., 6, :], rot[..., 6, :]
-    tip = _tip(pos, rot, 'parallel_jaw')
-    hand_cam = p7 + quatm.rotate(r7, const(KM.HAND_CAM_OFFSET, q))
+    tip = _tip(pos, rot, gripper)
+    hand_cam = p7 + quatm.rotate(r7, const(KM.hand_cam_offset_for(gripper), q))
     gbase = p7 + quatm.rotate(r7, const(KM.GRIPPER_BASE_OFFSET, q))
-    faxis = const(KM.FINGER_AXIS, q)
-    # finger local offset = origin + axis * joint position
-    floc = const(KM.FINGER_ORIGIN, q) + faxis * finger_q[..., :, None]
     r7f = r7[..., None, :]
-    fpos = gbase[..., None, :] + quatm.rotate(r7f, floc)
-    ftab_pos = fpos + quatm.rotate(r7f, const(KM.FINGER_TAB_OFFSET, q))
+    if gripper == 'robotiq85':
+        pads = robotiq_pads(finger_q)
+        fpos = p7[..., None, :] + quatm.rotate(r7f, pads['center'])
+        ftab_pos = p7[..., None, :] + quatm.rotate(r7f, pads['tab'])
+        faxis = pads['vel']
+    else:
+        faxis = const(KM.FINGER_AXIS, q).expand(finger_q.shape + (3,))
+        # finger local offset = origin + axis * joint position
+        floc = const(KM.FINGER_ORIGIN, q) + faxis * finger_q[..., :, None]
+        fpos = gbase[..., None, :] + quatm.rotate(r7f, floc)
+        ftab_pos = fpos + quatm.rotate(r7f, const(KM.FINGER_TAB_OFFSET, q))
     return {
         'tip': tip,
         'tip_rot': r7,
@@ -100,7 +134,7 @@ def ee_frames(q, finger_q, frames=None):
         'finger_pos': fpos,
         'finger_rot': r7f.expand(fpos.shape[:-1] + (4,)),
         'finger_tab': ftab_pos,
-        'finger_axis_l7': faxis.expand(fpos.shape),
+        'finger_axis_l7': faxis,
     }
 
 

@@ -5,7 +5,8 @@ Counterpart of `pybullet_multigoal_gym_tpu/ops/pallas_multibody.py`
 (`_build_kernel`'s ``substep``, `:336-852`) for scenes of free and pinned
 bodies made of box geoms of any size, static boxes and a prismatic door,
 with the parallel-jaw gripper (block_stack, block_rearrange, the chest
-tasks, the push primitives and insertion), written over a leading env axis:
+tasks, the push primitives and insertion) or the Robotiq-85 (the block
+tasks), written over a leading env axis:
 bodies stack on axis 1 of the state, and contact lanes on axis 1 of the
 lane tensors. The lane order, the lane frictions and the side metadata are
 those of the Pallas kernel (`:398-517`): per free body, per geom of it, the
@@ -49,7 +50,6 @@ from pybullet_multigoal_gym_tpu_torch.ops import engine_plain as EP
 from pybullet_multigoal_gym_tpu_torch.utils.tensors import const, index
 
 vcross, vdot, qmat, qmul = EP.vcross, EP.vdot, EP.qmat, EP.qmul
-FINGER_MASS = EP.FINGER_MASS
 
 
 class LaneSpec(NamedTuple):
@@ -246,7 +246,7 @@ def build_lanes(sc: D.MultiBodyConsts, ch, bp, bq, R, door_q=None):
     computed for all geoms, geom pairs, fingers or sphere-geom pairs of one
     size at once, then put in plan order."""
     N = bp.shape[0]
-    fhalf = EP.FINGER_HALF
+    fhalf = sc.finger.half
     fpos, r7 = ch['fpos'], ch['r7']
     Rb7 = qmat(r7)
     gb, half = sc.geom_body, sc.geom_half
@@ -499,6 +499,7 @@ def substep(sc: D.MultiBodyConsts, carry, qt, ft, door_on=None,
     ``door_on`` and ``door_tgt``. Returns (carry, ee_force)."""
     q, qd, fq, fqd, bp, bq, bv, bw = carry[:8]
     dt = D.DT_SUB
+    fc = sc.finger
 
     # 1. arm servo -> proposed qd (q integrates after the solve)
     v_des = torch.clamp(D.ARM_SERVO_RATE * (qt - q), -D.ARM_VEL_LIMIT,
@@ -507,13 +508,13 @@ def substep(sc: D.MultiBodyConsts, carry, qt, ft, door_on=None,
     qd = qd + torch.clamp(v_des - qd, -dv, dv)
 
     # 2. FK at the current configuration
-    ch = EP.fk_chain(q, fq)
+    ch = EP.fk_chain(q, fq, sc.gripper)
     o, z, faxis = ch['o'], ch['z'], ch['faxis']
 
     # 3. finger servo
-    fv_des = torch.clamp(D.ARM_SERVO_RATE * (ft - fq), -D.FINGER_VEL_LIMIT,
-                         D.FINGER_VEL_LIMIT)
-    fdv = KM.FINGER_PD_FORCE * dt / FINGER_MASS
+    fv_des = torch.clamp(D.ARM_SERVO_RATE * (ft - fq), -fc.vel_limit,
+                         fc.vel_limit)
+    fdv = fc.force * dt / fc.mass
     fqd = fqd + torch.clamp(fv_des - fqd, -fdv, fdv)
 
     # 4. gravity on the free bodies
@@ -584,7 +585,7 @@ def substep(sc: D.MultiBodyConsts, carry, qt, ft, door_on=None,
         (N, L, 3 directions, 3): side A, then side B, then the yielding arm
         (J_j . d = z_j . ((p - o_j) x d))."""
         da = (d * lane_axis[:, :, None]).sum(-1)
-        k_fin = (da * da / FINGER_MASS) * lane_fin_count[..., None]
+        k_fin = (da * da / fc.mass) * lane_fin_count[..., None]
         k_a = k_b = 0.0
         if door:
             dj = vdot(d, axis)
@@ -659,7 +660,7 @@ def substep(sc: D.MultiBodyConsts, carry, qt, ft, door_on=None,
         bw_ = bw_ + _mat3vec(Iw, dw_)
         dfq = torch.stack([(vdot(imp, faxis[:, f, None]) * m['fin_sgn'][:, f]
                             ).sum(1) for f in range(2)], -1)
-        fqd_ = fqd_ + dfq / FINGER_MASS
+        fqd_ = fqd_ + dfq / fc.mass
         if door:
             # side A gains the impulse along the axis, side B loses it
             ddoor = (vdot(imp, axis) * m['door_sgn']).sum(1)
@@ -700,9 +701,9 @@ def substep(sc: D.MultiBodyConsts, carry, qt, ft, door_on=None,
         bv_ = torch.where(pinned, bv0, bv_)
         bw_ = torch.where(pinned, bw0, bw_)
     bq = bq_new
-    fq = torch.clamp(fq + fqd_ * dt, EP._FQ_LO, EP._FQ_HI)
-    fqd_ = torch.where((fq >= EP._FQ_HI) & (fqd_ > 0), 0.0,
-                       torch.where((fq <= EP._FQ_LO) & (fqd_ < 0), 0.0, fqd_))
+    fq = torch.clamp(fq + fqd_ * dt, fc.lo, fc.hi)
+    fqd_ = torch.where((fq >= fc.hi) & (fqd_ > 0), 0.0,
+                       torch.where((fq <= fc.lo) & (fqd_ < 0), 0.0, fqd_))
     out = (q, qd, fq, fqd_, bp, bq, bv_, bw_)
     if door:
         # clamped to [0, limit]; the velocity into a stop is lost

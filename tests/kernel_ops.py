@@ -91,10 +91,10 @@ def bind(lib):
     so = ctypes.CDLL(str(lib))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     so.ik_count.argtypes = [P, P, I, I, F, F, F, I]
-    so.engine_count.argtypes = [I, I, I, P, P, P, P, I, I, I, I]
-    so.multibody_count.argtypes = [I, I, ctypes.c_uint, I, ctypes.c_ulonglong,
-                                   I, I, I, ctypes.c_uint, I, I, P, P, P, P, I,
-                                   I, I, I, I]
+    so.engine_count.argtypes = [I, I, I, I, P, P, P, P, I, I, I, I]
+    so.multibody_count.argtypes = [I, I, I, ctypes.c_uint, I,
+                                   ctypes.c_ulonglong, I, I, I, ctypes.c_uint,
+                                   I, I, P, P, P, P, I, I, I, I, I]
     so.ik_count.restype = so.engine_count.restype = ctypes.c_ulonglong
     so.multibody_count.restype = ctypes.c_ulonglong
     return so
@@ -105,14 +105,16 @@ def _threads():
 
 
 def ik_ops(lib, target_pos, target_quat=None, rest_pose=None, q_init=None,
-           num_iters=8):
-    """K1's operation count on these inputs (any device; counted on the
-    host) and the counting build's (N, 7) answer."""
+           num_iters=8, gripper='parallel_jaw'):
+    """K1's operation count on these inputs toward ``gripper``'s tip (any
+    device; counted on the host) and the counting build's (N, 7)
+    answer."""
     packed = cuda_ik.pack(target_pos, target_quat, rest_pose, q_init).cpu()
     n = packed.shape[1]
     out = torch.empty((7, n))
     ops = lib.ik_count(packed.data_ptr(), out.data_ptr(), n, int(num_iters),
-                       *cuda_ik.CudaIK().tip_offset, _threads())
+                       *cuda_ik.CudaIK(gripper=gripper).tip_offset,
+                       _threads())
     return int(ops), out.t()
 
 

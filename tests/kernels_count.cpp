@@ -1,7 +1,7 @@
 // Operation count of the port's CUDA kernels on given inputs: the
 // per-environment device code of csrc/ik.cu, csrc/engine.cu and K3's
-// csrc/multibody.cuh (its instances in multibody.cu, chest_push.cu and
-// chest_pick.cu) compiled by
+// csrc/multibody.cuh (its instances in multibody.cu, multibody_robotiq.cu,
+// chest_push.cu and chest_pick.cu) compiled by
 // the host C++ compiler with every `float` replaced by `Flop`, a float that
 // counts the arithmetic done on it (tests/kernel_ops.py builds and calls it;
 // chip_smoke.py takes the kernels' operation bound from it).
@@ -99,6 +99,7 @@ inline Flop atan2f(Flop a, Flop b) {
 #include "../pybullet_multigoal_gym_tpu_torch/csrc/engine.cu"
 #include "../pybullet_multigoal_gym_tpu_torch/csrc/ik.cu"
 #include "../pybullet_multigoal_gym_tpu_torch/csrc/multibody.cu"
+#include "../pybullet_multigoal_gym_tpu_torch/csrc/multibody_robotiq.cu"
 #include "../pybullet_multigoal_gym_tpu_torch/csrc/chest_pick.cu"
 #include "../pybullet_multigoal_gym_tpu_torch/csrc/chest_push.cu"
 #undef float
@@ -154,18 +155,20 @@ extern "C" unsigned long long ik_count(const float* in, float* out, int n,
 
 // Same inputs and outputs as engine_host; returns the operation count over
 // all n environments, or ~0 for a scene the library does not hold.
-extern "C" unsigned long long engine_count(int body, int plane_mask,
-                                           int geom_mask, const float* st,
-                                           const float* ctl, const float* prm,
-                                           float* out, int n, int n_sub,
-                                           int iters, int threads) {
+extern "C" unsigned long long engine_count(int grip, int body,
+                                           int plane_mask, int geom_mask,
+                                           const float* st, const float* ctl,
+                                           const float* prm, float* out,
+                                           int n, int n_sub, int iters,
+                                           int threads) {
     std::vector<Flop> fst = data(st, 34L * n), fctl = data(ctl, 9L * n),
                       fprm = data(prm, kin::N_PARAMS), fout(34L * n);
-#define ENGINE_CASE(B, PM, GM)                                               \
-    if (body == B && plane_mask == PM && geom_mask == GM) {                  \
+#define ENGINE_CASE(G, B, PM, GM)                                            \
+    if (grip == G && body == B && plane_mask == PM && geom_mask == GM) {     \
         unsigned long long ops = count_envs(n, threads, [&](int i) {         \
-            kin::engine_env<B, PM, GM>(fst.data(), fctl.data(), fprm.data(),  \
-                                       fout.data(), n, i, n_sub, iters);     \
+            kin::engine_env<G, B, PM, GM>(fst.data(), fctl.data(),           \
+                                          fprm.data(), fout.data(), n, i,    \
+                                          n_sub, iters);                     \
         });                                                                  \
         store(fout, out);                                                    \
         return ops;                                                          \
@@ -177,15 +180,17 @@ extern "C" unsigned long long engine_count(int body, int plane_mask,
 
 // The K3 scenes counted here: those whose bound chip_smoke.py reports
 // (block_rearrange with 2 blocks, block_stack with 5, the push-primitive
-// slot and cube, insertion, chest_push with 4 blocks, end-effector
-// control; packed as in multibody.cu); each instance of the counting float
-// takes seconds to compile.
+// slot and cube, insertion, chest_push with 4 blocks, and block_rearrange
+// with 2 blocks and the Robotiq-85, end-effector control; packed as in
+// multibody.cu); each instance of the counting float takes seconds to
+// compile.
 #define MULTIBODY_COUNTED(X)                                                \
-    X(2, 2, 0x10, 0x40, 0x3060, 0x0, 0x0, 0, 0x0, 0, 0x0)                   \
-    X(5, 5, 0x43210, 0x40, 0x78f1e3c78, 0x0, 0x0, 0, 0x0, 0, 0x0)           \
-    X(2, 4, 0x1000, 0x7c, 0xfffffff, 0x6, 0x0, 0, 0x0, 0, 0x0)              \
-    X(2, 5, 0x11110, 0x7c, 0x7ffffffff, 0x1c, 0x2, 0, 0x0, 0, 0x0)          \
-    X(4, 4, 0x3210, 0x40, 0xf1e3c78, 0x0, 0x0, 3, 0x1c3870, 2, 0x70)
+    X(0, 2, 2, 0x10, 0x40, 0x3060, 0x0, 0x0, 0, 0x0, 0, 0x0)                \
+    X(0, 5, 5, 0x43210, 0x40, 0x78f1e3c78, 0x0, 0x0, 0, 0x0, 0, 0x0)        \
+    X(0, 2, 4, 0x1000, 0x7c, 0xfffffff, 0x6, 0x0, 0, 0x0, 0, 0x0)           \
+    X(0, 2, 5, 0x11110, 0x7c, 0x7ffffffff, 0x1c, 0x2, 0, 0x0, 0, 0x0)       \
+    X(0, 4, 4, 0x3210, 0x40, 0xf1e3c78, 0x0, 0x0, 3, 0x1c3870, 2, 0x70)     \
+    X(1, 2, 2, 0x10, 0x40, 0x3060, 0x0, 0x0, 0, 0x0, 0, 0x0)
 
 // Same inputs and outputs as tests/kernels_host.cpp's multibody_host;
 // returns the operation count over all n environments, or ~0 for a scene

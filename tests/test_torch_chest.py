@@ -220,7 +220,14 @@ def test_control_step_plain_matches_xla(door, nb, task):
 
 # -------------------------------------------------- the env's main path
 def _jax_env(task, nb, **kw):
-    return jms.KukaMultiBlockEnv(JaxConfig(task=task, num_block=nb, **kw))
+    return _jax_env_of(JaxConfig(task=task, num_block=nb, **kw))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_env_of(cfg):
+    """The JAX env of ``cfg``, built once per module (building it solves
+    its rest pose, about 5 s on the CPU)."""
+    return jms.KukaMultiBlockEnv(cfg)
 
 
 def _main_path_matches_jax(task, nb):
@@ -241,7 +248,19 @@ def _main_path_matches_jax(task, nb):
     decode = jax.jit(jax.vmap(jenv.step_decode_pre))
     finish = jax.jit(jax.vmap(jenv.step_finish))
     rest = jnp.asarray(jenv.rest_pose)
-    run = _xla(nb, CHEST_DOOR[task])
+    xla = _xla(nb, CHEST_DOOR[task])
+    size = N_STATE * len(KINDS)
+
+    def run(phys, ctl, n_sub):
+        """The XLA engine at the batch it was compiled for by the stress
+        check (`_all_states`), the main path's envs tiled into it: one
+        compile per scene, not one per batch size."""
+        reps = -(-size // N_ENVS)
+        out = xla(*(jax.tree_util.tree_map(
+            lambda x: jnp.concatenate([x] * reps)[:size], tree)
+            for tree in (phys, ctl)), n_sub)
+        return jax.tree_util.tree_map(lambda x: x[:N_ENVS], out)
+
     rng = np.random.default_rng(0)
     actions = rng.uniform(-1, 1, (N_STEPS, N_ENVS, env.cfg.action_dim)
                           ).astype(np.float32)
@@ -328,8 +347,10 @@ def test_goal_chest_matches_jax(task, grip_informed, curriculum):
             jstate, *(jnp.asarray(n(x)) for x in (blocks, grip, close)))
     np.testing.assert_allclose(n(got.desired_goal),
                                np.asarray(want.desired_goal), atol=1e-6)
+    # the JAX env's own `goal_dim` on the stand-in's config (building the
+    # JAX env itself would solve its rest pose, 5 s, for nothing here)
     assert got.desired_goal.shape[1] == env.core.goal_dim == \
-        _jax_env(task, nb, **kw).goal_dim
+        jms.KukaMultiBlockEnv.goal_dim.fget(j)
     if not curriculum:
         np.testing.assert_allclose(n(got.sub_goals), np.asarray(
             want.sub_goals), atol=1e-6)
@@ -428,9 +449,11 @@ def test_resets_and_steps(task, joint_control):
                 'achieved_goal': (1 + 3 * nb,), 'desired_goal': (1 + 3 * nb,)}
         assert {k: v.shape[1:] for k, v in obs.items()} == dims
         if nb == 1:
-            jobs = _jax_env(task, nb, joint_control=joint_control).reset(
+            # the JAX reset's observation shapes, traced without running it
+            jobs = jax.eval_shape(
+                _jax_env(task, nb, joint_control=joint_control).reset,
                 jax.random.PRNGKey(0))[1]
-            assert {k: np.shape(v) for k, v in jobs.items()} == dims
+            assert {k: v.shape for k, v in jobs.items()} == dims
         assert not n(state.door_hold_open).any()
         assert (n(state.phys.door_q) == 0).all()
         if nb > 2:

@@ -114,7 +114,7 @@ def test_box_plane_lanes_match_tiles(geometry):
 
 def test_sat_box_box_lanes_match_tiles(geometry):
     g = geometry
-    ha, hb = (0.025, 0.025, 0.025), EP.FINGER_HALF
+    ha, hb = (0.025, 0.025, 0.025), D.finger_consts('parallel_jaw').half
     ref = PE.sat_box_box_lanes(
         tiles(g['bp']), PE.qmat(tiles(g['bq'])), ha, tiles(g['fp']),
         PE.qmat(tiles(g['fq'])), hb, 1.0, **META)

@@ -229,14 +229,18 @@ def test_time_limit_without_auto_reset():
 
 @pytest.mark.parametrize('task', ['slide'])
 def test_later_slices_raise(task):
-    """Image observations and the Robotiq-85 gripper come with later
-    slices; slide, the last single-step task, now builds (on K2's cylinder
-    lanes)."""
+    """Image observations come with a later slice, and so does the
+    Robotiq-85 gripper on the push primitives, insertion and the chest;
+    slide, the last single-step task, builds (on K2's cylinder lanes), and
+    so does push with the Robotiq-85."""
     assert make_vec_env(num_envs=2, task=task, device='cpu').core.scene \
         .has_body
     with pytest.raises(NotImplementedError, match='later slice'):
         make_vec_env(num_envs=2, task='push', image_observation=True,
                      device='cpu')
-    with pytest.raises(NotImplementedError, match='later slice'):
-        make_vec_env(num_envs=2, task='push', gripper='robotiq85',
-                     device='cpu')
+    assert make_vec_env(num_envs=2, task='push', gripper='robotiq85',
+                        device='cpu').core.scene.gripper == 'robotiq85'
+    for kw in (dict(task='insertion'), dict(task='chest_push', num_block=1),
+               dict(task='primitive_push_reach', primitive='continuous_push')):
+        with pytest.raises(NotImplementedError, match='later slice'):
+            make_vec_env(num_envs=2, gripper='robotiq85', device='cpu', **kw)

@@ -93,7 +93,7 @@ def test_make_env_num_envs_and_device():
             port.make_env(task='reach')
     # what still raises, naming a later slice
     with pytest.raises(NotImplementedError, match='later slice'):
-        port.make_env(task='push', gripper='robotiq85', device='cpu')
+        port.make_env(task='insertion', gripper='robotiq85', device='cpu')
     with pytest.raises(NotImplementedError, match='later slice'):
         port.make_env(task='push', image_observation=True, device='cpu')
 

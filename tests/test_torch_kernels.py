@@ -52,12 +52,12 @@ from pybullet_multigoal_gym_tpu_torch.ops.cuda_ik import CudaIK
 from pybullet_multigoal_gym_tpu_torch.ops.cuda_multibody import (
     CudaMultiBodyEngine)
 from tests import kernel_ops
-from tests.torch_common import (ARM_FIELDS, BODY_FIELDS, SLIDE_KINDS,
-                                chest_inputs, cuda, inputs,  # noqa: F401
-                                insertion_inputs, multi_inputs, n,
+from tests.torch_common import (ARM_FIELDS, BODY_FIELDS, ROBOTIQ_KINDS,
+                                SLIDE_KINDS, chest_inputs, cuda,  # noqa: F401
+                                inputs, insertion_inputs, multi_inputs, n,
                                 noise_bound, plain_run, plain_trajectory,
-                                primitive_inputs, slide_inputs, t,
-                                torch_controls, torch_state,
+                                primitive_inputs, robotiq_inputs,
+                                slide_inputs, t, torch_controls, torch_state,
                                 workspace_targets)
 
 torch.set_num_threads(1)
@@ -87,10 +87,10 @@ def host_kernels():
     so = ctypes.CDLL(str(kernel_ops.host_library(HOST_SRC, HOST_FLAGS)))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     so.ik_host.argtypes = [P, P, I, I, F, F, F]
-    so.engine_host.argtypes = [I, I, I, P, P, P, P, I, I, I]
-    so.multibody_host.argtypes = [I, I, ctypes.c_uint, I, ctypes.c_ulonglong,
-                                  I, I, I, ctypes.c_uint, I, I, P, P, P, P, I,
-                                  I, I]
+    so.engine_host.argtypes = [I, I, I, I, P, P, P, P, I, I, I]
+    so.multibody_host.argtypes = [I, I, I, ctypes.c_uint, I,
+                                  ctypes.c_ulonglong, I, I, I, ctypes.c_uint,
+                                  I, I, P, P, P, P, I, I, I]
     for fn in (so.ik_host, so.engine_host, so.multibody_host):
         fn.restype = ctypes.c_int
     return so
@@ -283,14 +283,68 @@ def test_multibody_source_on_host_matches_plain_chest(host_kernels, door,
     _multibody_host_vs_plain(host_kernels, sc, st, ctl, CHEST_WANT[kind])
 
 
+def robotiq_scene(task, control):
+    """The scene of a single-step task with the Robotiq-85 under
+    ``control``."""
+    spec = S.single_step_scene(task != 'reach', 'long_table' if task == 'slide'
+                               else 'table')
+    return D.scene_consts(spec, ik_workspace=control == 'ee',
+                          gripper='robotiq85')
+
+
+# K2's Robotiq instances on the host: (task, control, state); each of the 6
+# instances on a state of tests/torch_common.py:robotiq_inputs
+ROBOTIQ_ENGINE_CASES = [('push', 'ee', kind) for kind in ROBOTIQ_KINDS[:3]] + [
+    ('push', 'joint', 'sphere'), ('reach', 'ee', 'pad_table'),
+    ('reach', 'joint', 'sphere'), ('slide', 'ee', 'grasp'),
+    ('slide', 'joint', 'sphere')]
+
+
+@pytest.mark.parametrize('task,control,kind', ROBOTIQ_ENGINE_CASES)
+def test_engine_source_on_host_matches_plain_robotiq(host_kernels, task,
+                                                      control, kind):
+    """K2's Robotiq-85 instances (the linkage's pads, their short box, the
+    closure DoF's inertia, drive and [0, 0.804] stops): the pads closing on
+    a block or a puck, driven into both stops, pressed on the table, and a
+    wrist sphere on the table under joint control; the lane group each
+    state is made for acts."""
+    st, ctl = robotiq_inputs(kind, N_HOST, seed=1)
+    active = _engine_host_vs_plain(host_kernels, task,
+                                   robotiq_scene(task, control), kind,
+                                   (st, ctl))
+    want = {'grasp': 'finger-plane', 'pad_table': 'finger-plane',
+            'sphere': 'sphere-plane'}.get(kind)
+    if want is not None and task != 'slide':
+        assert active[want] > 0.1, active
+
+
+@pytest.mark.parametrize('nb', [1, 2, 3, 4, 5])
+@pytest.mark.parametrize('control', ['ee', 'joint'])
+def test_multibody_source_on_host_matches_plain_robotiq(host_kernels, nb,
+                                                        control):
+    """K3's Robotiq-85 instances, 1-5 blocks, 2 substeps: under EE control
+    the pads closing on a block (1, 3 and 5 blocks) or squeezing the top
+    block of a pile (2 and 4), under joint control a wrist or elbow sphere
+    on the table."""
+    sc = D.multibody_consts(S.multi_step_scene(nb),
+                            ik_workspace=control == 'ee', gripper='robotiq85')
+    kind = 'sphere' if control == 'joint' else ('pile' if nb % 2 == 0
+                                                else 'grasp')
+    st, ctl = robotiq_inputs(kind, N_HOST // 2, seed=1, nb=nb)
+    want = {'grasp': ('box-plane',), 'pile': ('box-box',),
+            'sphere': ('sphere-plane',)}[kind]
+    _multibody_host_vs_plain(host_kernels, sc, st, ctl, want)
+
+
 def _scene_table(name):
     """The instances of a kernel library's scene table macro, as tuples of
-    strings: (body, plane mask, body mask) for engine.cu, (bodies,
-    geoms, geom bodies, plane mask, geom masks, offset geoms, pinned
-    bodies, statics, static masks, door panels, door mask) for K3's
-    libraries."""
+    strings: (gripper, body, plane mask, body mask) for engine.cu,
+    (gripper, bodies, geoms, geom bodies, plane mask, geom masks, offset
+    geoms, pinned bodies, statics, static masks, door panels, door mask)
+    for K3's libraries."""
     text = (_build.CSRC / (name + '.cu')).read_text()
     macro = {'engine': 'ENGINE_SCENES', 'multibody': 'MULTIBODY_SCENES',
+             'multibody_robotiq': 'MULTIBODY_ROBOTIQ_SCENES',
              'chest_push': 'CHEST_PUSH_SCENES',
              'chest_pick': 'CHEST_PICK_SCENES'}[name]
     table = text[text.index('#define ' + macro):]
@@ -303,12 +357,12 @@ def _scene_table(name):
                                   'slide'])
 @pytest.mark.parametrize('joint_control', [False, True])
 def test_engine_library_holds_every_scene(task, joint_control):
-    """The (body, plane mask, body mask) of every scene the envs build
-    (`cuda_engine.scene_key`; ops/lane_cull.py decides the masks) is one
-    `ENGINE_SCENES` instance of engine.cu: a missing one would fail only at
-    launch, on the card."""
+    """The (gripper, body, plane mask, body mask) of every scene the envs
+    build (`cuda_engine.scene_key`; ops/lane_cull.py decides the masks) is
+    one `ENGINE_SCENES` instance of engine.cu: a missing one would fail
+    only at launch, on the card."""
     held = {tuple(int(x, 0) for x in key) for key in _scene_table('engine')}
-    assert len(held) == 6
+    assert len(held) == 12
     sc = make_vec_env(num_envs=1, task=task, joint_control=joint_control,
                       device='cpu').core.scene
     assert cuda_engine.scene_key(sc) in held
@@ -368,6 +422,36 @@ def test_chest_library_holds_every_scene(task, joint_control):
                                 ik_workspace=not joint_control)
         assert cuda_multibody.scene_key(sc) in held
         assert cuda_multibody.library(sc) == lib
+
+
+@pytest.mark.parametrize('joint_control', [False, True])
+def test_robotiq_libraries_hold_every_scene(joint_control):
+    """Every scene the Robotiq-85 envs build is an instance: the
+    single-step tasks' of engine.cu (gripper 1), block_stack's and
+    block_rearrange's, 1-5 blocks, of multibody_robotiq.cu."""
+    engine = {tuple(int(x, 0) for x in key) for key in _scene_table('engine')}
+    held = {tuple(int(x, 0) for x in key)
+            for key in _scene_table('multibody_robotiq')}
+    assert len(held) == 10
+    for task in ('reach', 'push', 'pick_and_place', 'slide'):
+        sc = make_vec_env(num_envs=1, task=task, gripper='robotiq85',
+                          joint_control=joint_control,
+                          device='cpu').core.scene
+        assert cuda_engine.scene_key(sc)[0] == 1
+        assert cuda_engine.scene_key(sc) in engine
+    for task in ('block_rearrange', 'block_stack'):
+        env = make_vec_env(num_envs=1, task=task, num_block=2,
+                           gripper='robotiq85', joint_control=joint_control,
+                           device='cpu')
+        assert env.core.scene == D.multibody_consts(
+            S.multi_step_scene(2), ik_workspace=not joint_control,
+            gripper='robotiq85')
+    for nb in range(1, 6):
+        sc = D.multibody_consts(S.multi_step_scene(nb),
+                                ik_workspace=not joint_control,
+                                gripper='robotiq85')
+        assert cuda_multibody.scene_key(sc) in held
+        assert cuda_multibody.library(sc) == 'multibody_robotiq'
 
 
 # ---------------------------------------------- operation count, CPU
@@ -470,6 +554,31 @@ def test_multibody_count_build_runs_the_host_build_chest(host_kernels,
     against the door while the pads sweep its handle."""
     sc = D.multibody_consts(S.multi_step_scene(4, True, 'front_sliding'))
     st, ctl = chest_inputs('front_sliding', 4, 'door_block', 16, seed=1)
+    _count_build_runs_the_host_build(host_kernels, count_kernels, sc,
+                                     torch_state(st), torch_controls(ctl))
+
+
+def test_count_build_runs_the_host_build_robotiq(host_kernels,
+                                                count_kernels):
+    """The same for the Robotiq-85's instances chip_smoke.py counts: push
+    (K2) with the pads closing on the block, block_rearrange with 2 blocks
+    (K3) on the squeezed pile."""
+    sc = robotiq_scene('push', 'ee')
+    st, ctl = robotiq_inputs('grasp', 32, seed=1)
+    st, ctl = torch_state(st), torch_controls(ctl)
+    rows, ctl_rows = cuda_engine.pack(st, ctl)
+    prm = torch.tensor(cuda_engine.scene_params(sc), dtype=torch.float32)
+    out = torch.empty_like(rows)
+    assert host_kernels.engine_host(
+        *cuda_engine.scene_key(sc), rows.data_ptr(), ctl_rows.data_ptr(),
+        prm.data_ptr(), out.data_ptr(), 32, 3, sc.solver_iters) == 0
+    ops, counted = kernel_ops.engine_ops(count_kernels, sc, st, ctl, 3)
+    for f in D.PhysicsState._fields:
+        assert torch.equal(getattr(counted, f),
+                           getattr(cuda_engine.unpack(out, st), f)), f
+    assert ops > 0
+    sc = D.multibody_consts(S.multi_step_scene(2), gripper='robotiq85')
+    st, ctl = robotiq_inputs('pile', 16, seed=1, nb=2)
     _count_build_runs_the_host_build(host_kernels, count_kernels, sc,
                                      torch_state(st), torch_controls(ctl))
 
@@ -638,6 +747,55 @@ def test_engine_kernel_matches_plain_on_main_path(cuda, task, n_sub, tol):
     ref = EP.control_step(env.core.scene, state.phys, ctl, n_sub)
     fields = ARM_FIELDS + (BODY_FIELDS if task != 'reach' else ())
     assert env_errors(out, ref, fields).max() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ROBOTIQ_KINDS)
+@pytest.mark.parametrize('n_sub', [2, 100])
+def test_engine_kernel_matches_plain_robotiq(cuda, kind, n_sub):
+    """K2's Robotiq-85 instances for push on the Robotiq stress states at
+    4096 envs (tests/torch_common.py:robotiq_inputs; 'sphere' under joint
+    control), each env within its bound (`noise_bound`), none beyond it."""
+    sc = robotiq_scene('push', 'joint' if kind == 'sphere' else 'ee')
+    st, ctl = robotiq_inputs(kind, N, seed=1)
+    st, ctl = torch_state(st, cuda), torch_controls(ctl, cuda)
+    w = CudaEngine(sc)
+    out = w.control_step(st, ctl, n_substeps=n_sub)
+    torch.cuda.synchronize()
+    assert w.launches == 1
+    ref = EP.control_step(sc, st, ctl, n_sub)
+    fields = ARM_FIELDS + BODY_FIELDS
+    err = env_errors(out, ref, fields)
+    bound = noise_bound(sc, st, ctl, n_sub, ref,
+                        lambda a, b: env_errors(a, b, fields),
+                        1e-4 if n_sub == 2 else 2e-3)[0]
+    assert (err <= n(bound)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['grasp', 'pile', 'sphere'])
+def test_multibody_kernel_matches_plain_robotiq(cuda, kind):
+    """K3's Robotiq-85 instances for 2 blocks at 4096 envs, 2 substeps: the
+    pads closing on a block, squeezing the top block of a pile, and a
+    wrist sphere on the table (joint control); each env within its bound,
+    with K3's allowance (`noise_bound`)."""
+    sc = D.multibody_consts(S.multi_step_scene(2),
+                            ik_workspace=kind != 'sphere', gripper='robotiq85')
+    st, ctl = robotiq_inputs(kind, N, seed=1, nb=2)
+    st, ctl = torch_state(st, cuda), torch_controls(ctl, cuda)
+    w = CudaMultiBodyEngine(sc)
+    out = w.control_step(st, ctl, n_substeps=2)
+    torch.cuda.synchronize()
+    assert w.launches == 1
+    ref = MP.control_step(sc, st, ctl, 2)
+    fields = ARM_FIELDS + BODY_FIELDS
+    err = env_errors(out, ref, fields)
+    bound, _, allowed, cap = noise_bound(
+        sc, st, ctl, 2, ref, lambda a, b: env_errors(a, b, fields), 1e-4)
+    share = err / n(bound)
+    beyond = np.nonzero(share > 1)[0]
+    assert len(beyond) <= allowed and share.max() <= cap, (
+        beyond[:8], share[beyond[:8]], allowed, cap)
 
 
 # K3's stress checks: (blocks, state, substeps). Each 100-substep case costs

@@ -127,7 +127,18 @@ def test_kernel_constants_match_model():
         'ARM_PD_FORCE': KM.ARM_PD_FORCE, 'DT': D.DT_SUB,
         'GRAVITY': D.GRAVITY, 'ARM_SERVO_RATE': D.ARM_SERVO_RATE,
         'ARM_VEL_LIMIT': D.ARM_VEL_LIMIT,
-        'FINGER_VEL_LIMIT': D.FINGER_VEL_LIMIT, 'BIAS_CAP': D.BIAS_CAP}
+        'FINGER_VEL_LIMIT': D.FINGER_VEL_LIMIT, 'BIAS_CAP': D.BIAS_CAP,
+        'ROBOTIQ_PAD_HALF': KM.ROBOTIQ_PAD_HALF,
+        'ROBOTIQ_INNER_X': KM.ROBOTIQ_INNER_X,
+        'ROBOTIQ_INNER_Y': KM.ROBOTIQ_INNER_Y,
+        'ROBOTIQ_ARM_TX': KM.ROBOTIQ_ARM_TX,
+        'ROBOTIQ_ARM_TY': KM.ROBOTIQ_ARM_TY,
+        'ROBOTIQ_TAB_X': KM.ROBOTIQ_TAB_X, 'ROBOTIQ_TAB_Y': KM.ROBOTIQ_TAB_Y,
+        'ROBOTIQ_BASE_Z': KM.ROBOTIQ_BASE_OFFSET[2],
+        'ROBOTIQ_JOINT_LIMIT': KM.ROBOTIQ_JOINT_LIMIT,
+        'ROBOTIQ_FINGER_INERTIA': KM.ROBOTIQ_FINGER_INERTIA,
+        'ROBOTIQ_PD_FORCE': KM.ROBOTIQ_PD_FORCE,
+        'ROBOTIQ_VEL_LIMIT': KM.ROBOTIQ_VEL_LIMIT}
     cuh = _cuh_constants()
     assert sorted(cuh) == sorted(model)
     for k, v in model.items():

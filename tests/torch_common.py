@@ -369,6 +369,101 @@ def multi_inputs(nb, kind, count, seed=0):
     return st, ctl
 
 
+# the Robotiq-85's stress states (robotiq_inputs): K2's, and K3's with the
+# squeezed pile
+ROBOTIQ_KINDS = ('grasp', 'stops', 'pad_table', 'sphere')
+# blocks beyond the ones a Robotiq state places rest on the table apart
+_ROBOTIQ_APART = np.array([[-0.45, -0.12, 0.175], [-0.60, 0.12, 0.175],
+                           [-0.45, 0.12, 0.175], [-0.60, -0.12, 0.175],
+                           [-0.40, 0.0, 0.175]], np.float32)
+
+
+def _robotiq_q(tips):
+    """IK solutions (numpy, (count, 7)) with the Robotiq-85's tip at
+    ``tips`` (count, 3), from the canonical pose."""
+    from pybullet_multigoal_gym_tpu_torch.ops import ik
+    q0 = torch.as_tensor(np.asarray(KM.KUKA_REST_POSE, np.float32))
+    return n(ik.solve(t(tips), q_init=q0.expand(len(tips), 7),
+                      gripper='robotiq85'))
+
+
+def robotiq_inputs(kind, count, seed=0, nb=1):
+    """Physics state and controls (numpy) for a scene of ``nb`` blocks with
+    the Robotiq-85 (finger joints are closure angles in [0, 0.804]):
+    'grasp' (the JAX package's `test_robotiq_grasps_and_lifts_block`: the
+    tip 35 mm above a block on the table, jittered by up to 3 mm, the pads
+    open at 0.40-0.48 rad, 4-8 mm off the block's sides, and driven to
+    0.804, so that they close on it within a control step), 'stops'
+    (the arm at rest in the air; finger 0 driven into its open stop and
+    finger 1 into its closed one, half the envs with targets beyond the
+    range, half at the stops themselves), 'pad_table' (the tip low over
+    the table, the short pads' bottoms up to 4 mm into it, the arm pressing
+    down), 'sphere' (a wrist or elbow sphere on the table:
+    sphere_inputs, joint control) and, with ``nb`` >= 2, 'pile' (a stack
+    of two blocks, the pads around the top one and squeezing it). Blocks
+    beyond those a state places rest on the table apart."""
+    rng = np.random.default_rng(seed)
+
+    def u(lo, hi, shape):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    z3 = np.zeros((count, nb, 3), np.float32)
+    st = mk_state(False, count, seed)
+    st.update(body_pos=np.tile(_ROBOTIQ_APART[:nb], (count, 1, 1)),
+              body_quat=np.tile(np.array([1.0, 0, 0, 0], np.float32),
+                                (count, nb, 1)),
+              body_linvel=z3, body_angvel=z3.copy())
+    if kind == 'sphere':
+        return sphere_inputs(st, count, seed)
+    ctl = mk_controls(count)
+    block = np.array([-0.52, 0.0, 0.175], np.float32)
+    if kind == 'grasp':
+        st['body_pos'][:, 0] = block + np.concatenate(
+            [u(-0.003, 0.003, (count, 2)), np.zeros((count, 1), np.float32)],
+            -1)
+        st.update(q=_robotiq_q(block + [0.0, 0.0, 0.035]
+                               + u(-0.001, 0.001, (count, 3))),
+                  fq=u(0.40, 0.48, (count, 2)))
+        ctl['f_target'] = np.full((count, 2), KM.ROBOTIQ_JOINT_LIMIT,
+                                  np.float32)
+    elif kind == 'stops':
+        st.update(q=np.tile(_robotiq_q(np.array([[-0.52, 0.0, 0.30]])),
+                            (count, 1)),
+                  fq=np.stack([u(0.0, 0.01, count), u(0.79, 0.804, count)],
+                              -1),
+                  fqd=np.stack([u(-1.5, -0.5, count), u(0.5, 1.5, count)],
+                               -1))
+        beyond = (np.arange(count) % 2 == 0)[:, None]
+        ctl['f_target'] = np.where(
+            beyond, np.array([-0.2, 1.0], np.float32),
+            np.array([0.0, KM.ROBOTIQ_JOINT_LIMIT], np.float32))
+    elif kind == 'pad_table':
+        tips = (np.array([-0.52, 0.0, 0.1975], np.float32)
+                + np.concatenate([u(-0.02, 0.02, (count, 2)),
+                                  u(-0.001, 0.001, (count, 1))], -1))
+        st.update(q=_robotiq_q(tips), fq=u(0.0, 0.1, (count, 2)),
+                  qd=u(-0.02, 0.02, (count, 7)))
+        ctl['q_target'] = _robotiq_q(tips - [0.0, 0.0, 0.01])
+        ctl['f_target'] = st['fq'].copy()
+    elif kind == 'pile' and nb >= 2:
+        gap = np.concatenate([u(-0.001, 0.001, (count, 2, 2)),
+                              u(0.0, 0.001, (count, 2, 1))], -1)
+        st['body_pos'][:, :2] = (block + np.array([[0.0, 0.0, 0.0303],
+                                                   [0.0, 0.0, 0.0]],
+                                                  np.float32) + gap)
+        st['body_quat'][:, :2] = _tilted(rng, (count, 2), 0.02)
+        st.update(q=_robotiq_q(block + [0.0, 0.0, 0.0653]
+                               + u(-0.001, 0.001, (count, 3))),
+                  fq=u(0.48, 0.5, (count, 2)), fqd=u(-0.02, 0.02, (count, 2)))
+        ctl['f_target'] = np.full((count, 2), KM.ROBOTIQ_JOINT_LIMIT,
+                                  np.float32)
+    else:
+        raise ValueError('no Robotiq state %r with %d blocks' % (kind, nb))
+    if kind != 'pad_table':
+        ctl['q_target'] = st['q'].copy()
+    return st, ctl
+
+
 def lane_group(lane):
     """The contact-lane group of a K2 plain-version lane, from its
     metadata."""
@@ -440,8 +535,9 @@ def _lane_names(sc, st):
     their own name."""
     if not isinstance(sc, D.MultiBodyConsts):
         bq = st.body_quat[:, 0]
-        plan = EP.build_lanes(sc, EP.fk_chain(st.q, st.fq), st.body_pos[:, 0],
-                              bq, EP.qmat(bq) if sc.has_body else None)
+        plan = EP.build_lanes(sc, EP.fk_chain(st.q, st.fq, sc.gripper),
+                              st.body_pos[:, 0], bq,
+                              EP.qmat(bq) if sc.has_body else None)
         return list(enumerate(k2_lane_groups(sc, plan)))
     names = list(enumerate(MP.lane_group(l) for l in MP.lane_plan(sc)))
     # per geom pair of two free bodies its 10 lanes, and the edge lane of
@@ -465,11 +561,12 @@ def _substep_fn(sc, ctl, track):
         if track:
             q, _, fq, _, bp, bq = carry[:6]
             if multi:
-                act = MP.build_lanes(sc, EP.fk_chain(q, fq), bp, bq,
-                                     EP.qmat(bq), *carry[8:9])[3]
+                act = MP.build_lanes(sc, EP.fk_chain(q, fq, sc.gripper), bp,
+                                     bq, EP.qmat(bq), *carry[8:9])[3]
             else:
-                plan = EP.build_lanes(sc, EP.fk_chain(q, fq), bp, bq,
-                                      EP.qmat(bq) if sc.has_body else None)
+                plan = EP.build_lanes(sc, EP.fk_chain(q, fq, sc.gripper), bp,
+                                      bq, EP.qmat(bq) if sc.has_body
+                                      else None)
                 act = torch.stack([l.active for l in plan], 1)
             acts = (act > 0,)
         if multi:
@@ -536,6 +633,21 @@ def _substeps(sc, carry, ee, ctl, n_sub, noise_seed=None, track=False,
     return tuple(x.clone() for x in carry), ee.clone(), acc
 
 
+class NoisyEngine:
+    """Stands in for an env's control-step wrapper: the plain version with
+    every state element moved by -1, 0 or +1 ulp before each substep
+    (`plain_run`), a fresh noise seed each call. An env stepped with it
+    shows how far the plain path's own rounding moves a step."""
+
+    def __init__(self, sc):
+        self.sc, self.calls, self.launches = sc, 0, 0
+
+    def control_step(self, state, controls, n_substeps=100):
+        self.calls += 1
+        return plain_run(self.sc, state, controls, n_substeps,
+                         noise_seed=self.calls)[0]
+
+
 def noise_bound(sc, st, ctl, n_sub, ref, errors, tol, runs=8, factor=2.0):
     """Per-env bounds from the plain version's own sensitivity to rounding:
     ``runs`` noisy plain runs (`plain_run`), each env's spread (the largest
@@ -559,9 +671,18 @@ def noise_bound(sc, st, ctl, n_sub, ref, errors, tol, runs=8, factor=2.0):
     errs = torch.stack([torch.as_tensor(errors(
         type(out)(*(x[k * count:(k + 1) * count] for x in out)), ref))
         for k in range(runs)])
+    return spread_bound(errs, tol, factor)
+
+
+def spread_bound(errs, tol, factor=2.0):
+    """`noise_bound`'s figures from the errors ``errs`` (runs, N) of noisy
+    runs against the reference: per env the bound, the larger of ``tol``
+    and ``factor`` times its spread, and the spread; ``allowed``, the most
+    envs one run puts beyond the other runs' bound, and ``cap``, the
+    largest share of that bound such an env reaches (1 where none)."""
     spread = errs.max(0).values
     allowed, cap = 0, 1.0
-    for k in range(runs):
+    for k in range(errs.shape[0]):
         others = torch.clamp(factor * torch.cat([errs[:k], errs[k + 1:]])
                              .max(0).values, min=tol)
         out = errs[k] > others
